@@ -4,19 +4,42 @@
 
 Phases: (1) the device; (2) the build of the hand-written kernels from
 ``polyphonicformer_torch/csrc``; (3) each kernel against its plain PyTorch
-version at the shapes the serving path gives it, with both timed; (4) the
-R50 video serving path (``video_r50_1x``, seeded random weights) on an
-8-frame 1024x2048 clip in bf16 through ``clip_video_step``, with the kernel
-launch counts of that run.  Any failed phase raises, so the exit code is not
-0.  The last two lines are a JSON object of per-kernel results and the JSON
-result line ``{"ok": true, "device": {...}}``.
+version at the shapes the serving and training paths give it, timed beside
+the plain version and, where one PyTorch call computes the same function,
+that call, with the least time the card could take (bytes over 3.35 TB/s or
+operations over the peak of their type, whichever is larger); (4) the R50
+video serving path (``video_r50_1x``, seeded random weights) on an 8-frame
+1024x2048 clip in bf16 through ``clip_video_step``; (5) the image-model
+train step (``image_r50_2x``, seeded random weights) at 1024x2048, batch 1,
+f32, through ``create_train_state`` and ``make_train_step`` for 3 steps,
+then a debug-size step on the card against the same step on the CPU.
+Phases 4 and 5 each count the kernel launches of their own run.  Any
+failed phase raises, so the exit code is not 0.  The last lines are the
+card, a JSON object of per-kernel results and the JSON result line
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}  # dense tensor-core bf16, f32 without
+
+
+def _bound(nbytes: float, ops: float = 0.0, kind: str = "f32") -> dict:
+    """The least time for moving ``nbytes`` and doing ``ops`` operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_us": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def _nvidia_smi() -> str:
@@ -64,6 +87,8 @@ def check_kernels(dev, gen) -> list[dict]:
     """Phase 3: every kernel of the serving path against its plain version."""
     import torch
 
+    from torch.nn import functional as F
+
     from polyphonicformer_torch.ops.cuda import map_render, mask_pool, phase_fusion, upsample2
 
     rows = []
@@ -83,11 +108,18 @@ def check_kernels(dev, gen) -> list[dict]:
         _check(f"mask_pool n={n}", bool((diff <= bound).all()),
                f"max err {float(diff.max())} beyond rtol 1e-5 of sum|feat|")
         err = max(err, float(diff.max()))
+    # library call: the cuBLAS product of the thresholded mask (the
+    # threshold itself is outside the timed call)
+    hard = (torch.sigmoid(logits.float()) > 0.5).to(torch.bfloat16).flatten(2)
+    feats_flat = feats_hwc.flatten(1, 2)
+    out = mask_pool.masked_pool(logits, feats_hwc)
     rows.append(dict(
         name="mask_pool", route="cuda", source="polyphonicformer_torch/csrc/mask_pool.cu",
         replaces="polyphonicformer_tpu/ops/pallas/mask_pool.py:45", max_abs_err=err,
         ms=_time_ms(lambda: mask_pool.masked_pool(logits, feats_hwc)),
-        plain_ms=_time_ms(lambda: mask_pool.mask_pool_plain(logits, feats_hwc))))
+        plain_ms=_time_ms(lambda: mask_pool.mask_pool_plain(logits, feats_hwc)),
+        library_ms=_time_ms(lambda: torch.matmul(hard, feats_flat)),
+        **_bound(_nbytes(logits, feats, out), 2.0 * logits.numel() * feats.shape[1], "bf16")))
 
     # K2 upsample: x2 of the stage mask/depth logits, x4 to full resolution
     err = 0.0
@@ -101,7 +133,10 @@ def check_kernels(dev, gen) -> list[dict]:
         name="upsample2", route="cuda", source="polyphonicformer_torch/csrc/upsample.cu",
         replaces="polyphonicformer_tpu/ops/pallas/upsample2.py:154", max_abs_err=err,
         ms=_time_ms(lambda: upsample2.upsample_int(x2, 2)),
-        plain_ms=_time_ms(lambda: upsample2.upsample_int_plain(x2, 2, 2))))
+        plain_ms=_time_ms(lambda: upsample2.upsample_int_plain(x2, 2, 2)),
+        library_ms=_time_ms(lambda: F.interpolate(x2[:, None], scale_factor=2, mode="bilinear",
+                                                  align_corners=False)),
+        **_bound(_nbytes(x2) * 5)))
 
     # K3 phase_fusion: 111 bf16 candidates at stride 4 -> 1024x2048, f32
     # scores, pruned to 64 full rows and not
@@ -122,9 +157,11 @@ def check_kernels(dev, gen) -> list[dict]:
         _check(tag + " dep", bool((diff <= 1e-4 + 1e-5 * want[1].abs()).all()),
                f"max err {float(diff.max())}")
         err = max(err, float(diff.max()))
+    outs = phase_fusion.phase_fusion(probs, scores, depth, 4, 4, n_full=64)
     rows.append(dict(
         name="phase_fusion", route="cuda", source="polyphonicformer_torch/csrc/phase_fusion.cu",
         replaces="polyphonicformer_tpu/ops/pallas/phase_fusion.py:126", max_abs_err=err,
+        library_ms=None, **_bound(_nbytes(probs, scores, depth, *outs)),
         ms=_time_ms(lambda: phase_fusion.phase_fusion(probs, scores, depth, 4, 4, n_full=64)),
         plain_ms=_time_ms(lambda: phase_fusion.phase_fusion_plain(
             probs, scores, depth, 4, 4, n_full=64), reps=5)))
@@ -147,8 +184,102 @@ def check_kernels(dev, gen) -> list[dict]:
     rows.append(dict(
         name="map_render", route="cuda", source="polyphonicformer_torch/csrc/map_render.cu",
         replaces="polyphonicformer_tpu/ops/pallas/map_render.py:53", max_abs_err=err,
+        library_ms=None,
+        **_bound(_nbytes(*(a for a in args if isinstance(a, torch.Tensor)), *got)),
         ms=_time_ms(lambda: map_render.render_maps(*args)),
         plain_ms=_time_ms(lambda: map_render.render_maps_plain(*args))))
+    return rows
+
+
+def check_train_kernels(dev, gen) -> list[dict]:
+    """Phase 3, training shapes: K2b, K5, K6 and K6b against their plain
+    versions at the shapes of the image-model train step at 1024x2048."""
+    import torch
+
+    from polyphonicformer_torch.ops.cuda import lsa, mask_loss, upsample2
+    from polyphonicformer_torch.ops.hungarian import match_gt_to_preds_batched
+
+    rows = []
+    # K2b: gradients of the x2 upsamples of (1+3 stages x 111) mask logits
+    # and of the 19 semantic logits, bit-equal
+    err = 0.0
+    for n in (444, 19):
+        g = torch.randn((n, 256, 512), generator=gen, device=dev)
+        got = upsample2._upsample_int_bwd_cuda(g, 2, 2)
+        torch.cuda.synchronize()
+        err = max(err, _exact(f"upsample bwd n={n}", got,
+                              upsample2.upsample_int_bwd_plain(g, 2, 2)))
+        if n == 444:
+            g444, dx444 = g, got
+    lib_args = (g444[:, None], [256, 512], [444, 1, 128, 256], False, 2.0, 2.0)
+    rows.append(dict(
+        name="upsample2_bwd", route="cuda", source="polyphonicformer_torch/csrc/upsample.cu",
+        replaces="polyphonicformer_tpu/ops/pallas/upsample2.py:172", max_abs_err=err,
+        ms=_time_ms(lambda: upsample2._upsample_int_bwd_cuda(g444, 2, 2)),
+        plain_ms=_time_ms(lambda: upsample2.upsample_int_bwd_plain(g444, 2, 2)),
+        library_ms=_time_ms(lambda: torch.ops.aten.upsample_bilinear2d_backward(*lib_args)),
+        **_bound(_nbytes(g444, dx444))))
+
+    # K5: 16 seeded (64 GT x 100 predictions) problems, 12-40 valid rows
+    # each, some invalid rows between valid ones
+    costs = torch.randn((16, 64, 100), generator=gen, device=dev) * 2
+    counts = torch.randint(12, 41, (16,), generator=gen, device=dev)
+    valid = torch.arange(64, device=dev)[None] < counts[:, None]
+    holes = torch.rand((16, 64), generator=gen, device=dev) < 0.15
+    valid = valid & ~(holes & (torch.arange(64, device=dev) < 10))
+    got = match_gt_to_preds_batched(costs, valid)
+    torch.cuda.synchronize()
+    want = match_gt_to_preds_batched(costs.cpu(), valid.cpu())
+    _check("lsa", torch.equal(got.cpu(), want), "assignments differ from the plain solver")
+    prepared = torch.nan_to_num(torch.where(valid[:, :, None], costs, 0.0), nan=1e8,
+                                posinf=1e8, neginf=-1e8)
+    rows.append(dict(
+        name="lsa", route="cuda", source="polyphonicformer_torch/csrc/lsa.cu",
+        replaces="polyphonicformer_tpu/ops/pallas/lsa.py:133", max_abs_err=0.0,
+        ms=_time_ms(lambda: lsa.solve_lsa(prepared, valid)),
+        plain_ms=_time_ms(lambda: lsa.solve_lsa_plain(prepared, valid), reps=3),
+        library_ms=None, **_bound(_nbytes(prepared, valid, got))))
+
+    # K6 / K6b on the three refinement stages' mask volume
+    shape = (3, 111, 256, 512)
+    m = torch.randn(shape, generator=gen, device=dev) * 3
+    t = (torch.rand(shape, generator=gen, device=dev) < 0.2).float()
+    pos = (torch.rand(shape[:2], generator=gen, device=dev) < 0.3).float()
+    v = (torch.rand((3, 256, 512), generator=gen, device=dev) < 0.9).float()
+    lbl = torch.randint(0, 111, (3, 256, 512), generator=gen, device=dev, dtype=torch.int32)
+    lbl[torch.rand((3, 256, 512), generator=gen, device=dev) < 0.2] = 255
+    stats, dice = mask_loss._stats_cuda(m, t, pos, v, lbl)
+    torch.cuda.synchronize()
+    ws, wd = mask_loss.mask_loss_stats_plain(m, t, pos, v, lbl)
+    err = 0.0
+    for name, a, b in (("stats", stats, ws), ("dice", dice, wd)):
+        diff = (a - b).abs()
+        _check(f"mask_loss {name}", bool((diff <= 1e-5 * b.abs()).all()),
+               f"max rel err {float((diff / b.abs().clamp(min=1e-30)).max())}")
+        err = max(err, float(diff.max()))
+    rows.append(dict(
+        name="mask_loss", route="cuda", source="polyphonicformer_torch/csrc/mask_loss.cu",
+        replaces="polyphonicformer_tpu/ops/pallas/mask_loss.py:142", max_abs_err=err,
+        ms=_time_ms(lambda: mask_loss._stats_cuda(m, t, pos, v, lbl)),
+        plain_ms=_time_ms(lambda: mask_loss.mask_loss_stats_plain(m, t, pos, v, lbl)),
+        library_ms=None, **_bound(_nbytes(m, t, pos, v, lbl, stats, dice))))
+    gs = torch.randn((3, 2), generator=gen, device=dev)
+    gd = torch.randn((3, 3, 111), generator=gen, device=dev)
+    dm = mask_loss._grad_cuda(m, t, pos, v, lbl, gs, gd)
+    torch.cuda.synchronize()
+    want = mask_loss.mask_loss_grad_plain(m, t, pos, v, lbl, gs, gd)
+    diff = (dm - want).abs()
+    _check("mask_loss dm", bool((diff <= 1e-7 + 1e-5 * want.abs()).all()),
+           f"max err {float(diff.max())}")
+    del want, diff
+    rows.append(dict(
+        name="mask_loss_bwd", route="cuda", source="polyphonicformer_torch/csrc/mask_loss.cu",
+        replaces="polyphonicformer_tpu/ops/pallas/mask_loss.py:162",
+        max_abs_err=float((dm - mask_loss.mask_loss_grad_plain(m, t, pos, v, lbl, gs, gd))
+                          .abs().max()),
+        ms=_time_ms(lambda: mask_loss._grad_cuda(m, t, pos, v, lbl, gs, gd)),
+        plain_ms=_time_ms(lambda: mask_loss.mask_loss_grad_plain(m, t, pos, v, lbl, gs, gd)),
+        library_ms=None, **_bound(_nbytes(m, t, pos, v, lbl, gs, gd, dm))))
     return rows
 
 
@@ -180,15 +311,23 @@ def main() -> int:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    rows = check_kernels(dev, gen)
+    rows = check_kernels(dev, gen) + check_train_kernels(dev, gen)
     for r in rows:
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"[3 kernel] {r['name']}: max_abs_err {r['max_abs_err']} | kernel {r['ms']:.4f} ms "
-              f"| plain {r['plain_ms']:.4f} ms", flush=True)
+              f"| plain {r['plain_ms']:.4f} ms | library {lib} | bound {r['bound_us']:.2f} us "
+              f"({r['bound_by']})", flush=True)
 
-    launches, slice_info = run_slice(dev)
-    for r in rows:
-        r["launches"] = launches[r["name"]]
+    serve_launches, slice_info = run_slice(dev)
     print(f"[4 slice] {json.dumps(slice_info)}", flush=True)
+    train_launches, train_info = run_train(dev)
+    print(f"[5 train] {json.dumps(train_info)}", flush=True)
+    for r in rows:
+        by_path = {"serve": serve_launches.get(r["name"], 0),
+                   "train": train_launches.get(r["name"], 0)}
+        r["launches"] = by_path["serve"] + by_path["train"]
+        r["launches_by_path"] = by_path
+        _check(f"launches {r['name']}", r["launches"] > 0, "never launched on a main path")
 
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
@@ -199,6 +338,22 @@ def main() -> int:
 
 
 PER_FRAME = {"mask_pool": 7, "upsample2": 4, "phase_fusion": 1, "map_render": 1}
+# per train step: K1 once in the rpn head and twice per stage; one x2
+# upsample each of the stacked masks, the semantic logits, the dense depth
+# and the stacked stage depths, forward and backward; one batched solve; the
+# mask losses of the rpn and of the stacked stages, forward and backward
+PER_STEP = {"mask_pool": 7, "upsample2": 4, "upsample2_bwd": 4, "lsa": 1, "mask_loss": 2,
+            "mask_loss_bwd": 2}
+
+
+def _kernels():
+    from polyphonicformer_torch.ops.cuda import (lsa, map_render, mask_loss, mask_pool,
+                                                 phase_fusion, upsample2)
+
+    return {"mask_pool": mask_pool.KERNEL, "upsample2": upsample2.KERNEL,
+            "upsample2_bwd": upsample2.KERNEL_BWD, "phase_fusion": phase_fusion.KERNEL,
+            "map_render": map_render.KERNEL, "lsa": lsa.KERNEL, "mask_loss": mask_loss.KERNEL,
+            "mask_loss_bwd": mask_loss.KERNEL_BWD}
 
 
 def _frames(gen, t, h, w, block, dev):
@@ -254,10 +409,8 @@ def run_slice(dev):
                                                        make_video_step)
     from polyphonicformer_torch.infer.tracker import init_tracker_state
     from polyphonicformer_torch.models import build_model
-    from polyphonicformer_torch.ops.cuda import map_render, mask_pool, phase_fusion, upsample2
 
-    kernels = {"mask_pool": mask_pool.KERNEL, "upsample2": upsample2.KERNEL,
-               "phase_fusion": phase_fusion.KERNEL, "map_render": map_render.KERNEL}
+    kernels = _kernels()
     cfg = model_preset("video_r50_1x")
     h, w, t = 1024, 2048, 8
     gen = torch.Generator(device=dev)
@@ -279,9 +432,10 @@ def run_slice(dev):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = {name: k.launches for name, k in kernels.items()}
-    for name, per in PER_FRAME.items():
-        _check(f"launches {name}", launches[name] == per * t,
-               f"{launches[name]} launches, expected {per} x {t} frames")
+    for name, n in launches.items():
+        per = PER_FRAME.get(name, 0)
+        _check(f"launches {name}", n == per * t,
+               f"{n} launches, expected {per} x {t} frames")
 
     nc, nt = cfg.num_classes, cfg.num_thing_classes
     for field, dtype in (("semantic", torch.int32), ("panoptic", torch.int32),
@@ -330,6 +484,126 @@ def run_slice(dev):
         "launches": launches, "small_reference_agree": check_small_reference(dev),
     }
     return launches, info
+
+
+def check_train_reference(dev) -> dict:
+    """One debug_tiny train step at 64x128 on the card (kernels) against the
+    same step on the CPU (plain versions), same weights and batch:
+    assignments equal, every loss within rtol 1e-4."""
+    import torch
+
+    from polyphonicformer_torch.configs import preset
+    from polyphonicformer_torch.data.synthetic import synthetic_batch
+    from polyphonicformer_torch.models import build_model
+    from polyphonicformer_torch.train import losses
+    from polyphonicformer_torch.train.step import create_train_state, make_train_step
+
+    cfg = preset("debug_tiny")
+    cpu = build_model(cfg.model, "cpu", generator=torch.Generator().manual_seed(0))
+    sides = {}
+    for name, device in (("cpu", "cpu"), ("gpu", dev)):
+        model = build_model(cfg.model, device, state_dict=cpu.state_dict())
+        state, opt = create_train_state(model, cfg, None, device=device)
+        batch = synthetic_batch(cfg.model, 1, (64, 128), seed=0, max_instances=6,
+                                device=device)
+        with torch.no_grad():
+            asg = losses.assign(cfg.model, state.model(batch.image), batch.gt)
+        _, metrics = make_train_step(state.model, cfg, opt)(state, batch)
+        sides[name] = ([a.gt2pred.cpu() for a in asg.assigns],
+                       {k: float(v) for k, v in metrics.items()})
+    (ac, mc), (ag, mg) = sides["cpu"], sides["gpu"]
+    _check("train reference assignments", all(torch.equal(a, b) for a, b in zip(ac, ag)),
+           "the card's assignments differ from the CPU's")
+    worst = 0.0
+    for k, v in mc.items():
+        rel = abs(mg[k] - v) / max(abs(v), 1e-6)
+        worst = max(worst, rel)
+        _check(f"train reference {k}", rel <= 1e-4, f"{mg[k]} vs {v}")
+    return {"max_rel_err": worst, "total_loss": mg["total_loss"]}
+
+
+def run_train(dev):
+    """Phase 5: the image-model train step at full width, 1024x2048, B=1."""
+    import torch
+
+    from polyphonicformer_torch.configs import preset
+    from polyphonicformer_torch.data.synthetic import synthetic_batch
+    from polyphonicformer_torch.models import PolyphonicFormer
+    from polyphonicformer_torch.train import losses
+    from polyphonicformer_torch.train.step import create_train_state, make_train_step
+
+    kernels = _kernels()
+    cfg = preset("image_r50_2x")
+    h, w, steps = 1024, 2048, 3
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    with torch.device("meta"):
+        model = PolyphonicFormer(cfg.model)
+    state, opt = create_train_state(model, cfg, gen, steps_per_epoch=1000, device=dev)
+    step = make_train_step(state.model, cfg, opt)
+    batch = synthetic_batch(cfg.model, 1, (h, w), seed=0, max_instances=24, device=dev)
+    frozen = state.model.backbone.conv1.weight.detach().clone()
+    trained = state.model.backbone.layer2[0].conv1.weight.detach().clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    for k in kernels.values():
+        k.launches = 0
+    step_s, all_metrics = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        all_metrics.append({k: float(v) for k, v in metrics.items()})
+    launches = {name: k.launches for name, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    for name, n in launches.items():
+        per = PER_STEP.get(name, 0)
+        _check(f"train launches {name}", n == per * steps,
+               f"{n} launches, expected {per} x {steps} steps")
+    for i, m in enumerate(all_metrics):
+        bad = [k for k, v in m.items() if v != v or abs(v) == float("inf")]
+        _check(f"train step {i} losses", not bad, f"non-finite {bad}")
+        _check(f"train step {i} guard", m["skipped_nonfinite"] == 0.0, "step skipped")
+    _check("frozen conv1", torch.equal(state.model.backbone.conv1.weight, frozen),
+           "a frozen parameter moved")
+    _check("trainable layer2", not torch.equal(state.model.backbone.layer2[0].conv1.weight,
+                                               trained), "a trainable parameter did not move")
+    _check("step counter", int(state.step) == steps, f"{int(state.step)}")
+
+    # one more step in stages, each closed by a synchronize (not counted)
+    stages = {}
+
+    def mark(name, t0):
+        torch.cuda.synchronize()
+        stages[name] = (time.perf_counter() - t0) * 1e3
+        return time.perf_counter()
+
+    t = time.perf_counter()
+    opt.zero_grad()
+    out = state.model(batch.image)
+    t = mark("forward", t)
+    asg = losses.assign(cfg.model, out, batch.gt)
+    t = mark("assignment", t)
+    total, _ = losses.losses_from(cfg.model, out, batch.gt, asg)
+    t = mark("losses", t)
+    total.backward()
+    t = mark("backward", t)
+    opt.clip_grads()
+    opt.step()
+    mark("optimizer", t)
+
+    return launches, {
+        "preset": "image_r50_2x", "hw": [h, w], "batch": 1, "dtype": "float32",
+        "max_instances": 24, "cold_step_s": step_s[0],
+        "warm_steps_ms": [s * 1e3 for s in step_s[1:]],
+        "median_warm_step_ms": statistics.median(s * 1e3 for s in step_s[1:]),
+        "stages_ms": stages, "peak_mem_gib": peak / 2 ** 30,
+        "total_loss": [m["total_loss"] for m in all_metrics],
+        "grad_norm": [m["grad_norm"] for m in all_metrics],
+        "launches": launches, "small_reference": check_train_reference(dev),
+    }
 
 
 if __name__ == "__main__":

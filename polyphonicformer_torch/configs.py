@@ -1,18 +1,38 @@
-"""Configuration of the port's serving path.
+"""Configuration of the port's serving and image-training paths.
 
 The fields of ``polyphonicformer_tpu/configs/config.py`` that the port
 reads, under the same names and with the same defaults (the reference's
-``configs/_base_/models/polyphonic_former.py`` and
-``configs/polyphonic_video/poly_r50_cityscapes_1x.py``), so the port and
-everything it runs on import nothing of the JAX package.  The training,
-data and Swin fields wait for the slices that read them.
-``tests/test_torch_configs.py`` holds each preset field for field against
-the JAX package's.
+``configs/_base_/models/polyphonic_former.py``,
+``configs/_base_/schedules/schedule_{1x,2x}.py`` and the leaf configs named
+at each preset), so the port and everything it runs on import nothing of
+the JAX package.  The video-training, loader and Swin fields wait for the
+slices that read them.  ``tests/test_torch_configs.py`` holds each preset
+field for field against the JAX package's.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class DepthLossConfig:
+    loss_weight: float = 5.0
+    depth_act_mode: str = "sigmoid"  # 'sigmoid' | 'monodepth'
+    si_weight: float = 1.0
+    sq_rel_weight: float = 1.0
+    abs_rel_weight: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class AssignerConfig:
+    cls_weight: float = 2.0
+    dice_weight: float = 4.0
+    mask_weight: float = 1.0
+    depth_weight: float = 0.0
+    focal_gamma: float = 2.0
+    focal_alpha: float = 0.25
+    topk: int = 1  # >1: each GT takes its best `topk` prediction rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,7 +73,10 @@ class ModelConfig:
     num_stuff_classes: int = 11
     num_proposals: int = 100
     num_stages: int = 3
+    mask_assign_stride: int = 4
+    ignore_label: int = 255
     backbone: str = "resnet50"
+    frozen_stages: int = 1
     fpn_out_channels: int = 256
     out_channels: int = 256
     num_heads: int = 8
@@ -63,6 +86,18 @@ class ModelConfig:
     num_cls_fcs: int = 1
     num_mask_fcs: int = 1
     depth_act_mode: str = "sigmoid"  # 'sigmoid' | 'monodepth'
+    # loss weights (rpn = KernelHead, rcnn = KernelUpdateHead)
+    loss_rank_weight: float = 0.1
+    loss_seg_weight: float = 1.0
+    loss_mask_weight: float = 1.0
+    loss_dice_weight: float = 4.0
+    loss_cls_weight: float = 2.0
+    focal_gamma: float = 2.0
+    focal_alpha: float = 0.25
+    rpn_depth_loss: DepthLossConfig = DepthLossConfig(loss_weight=5.0)
+    rcnn_depth_loss: DepthLossConfig = DepthLossConfig(loss_weight=5.0)
+    rpn_assigner: AssignerConfig = AssignerConfig()
+    rcnn_assigner: AssignerConfig = AssignerConfig()
     # test cfg
     max_per_img: int = 100
     overlap_thr: float = 0.6
@@ -70,26 +105,88 @@ class ModelConfig:
     # bf16 fusion: thing rows with full render capacity; the rest fold into
     # the K3 kernel's max channel (53 + 11 stuff = 64 rows)
     fusion_full_things: int = 53
+    with_semantic_aspp: bool = False  # the ASPP head is not ported (raises)
     with_track: bool = False
     track_head: TrackHeadConfig = TrackHeadConfig()
     tracker: TrackerConfig = TrackerConfig()
+    max_things: int = 64  # GT thing instances per image after padding
+    compute_dtype: str = "float32"  # 'bfloat16': bf16 forward, f32 master weights
+    # recompute the backbone in the backward pass (torch.utils.checkpoint)
+    remat_backbone: bool = True
 
     @property
     def num_classes(self) -> int:
         return self.num_thing_classes + self.num_stuff_classes
 
+    @property
+    def num_queries(self) -> int:
+        """Proposals + stuff kernels."""
+        return self.num_proposals + self.num_stuff_classes
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    img_size: Tuple[int, int] = (1024, 2048)  # (H, W) crop
+    size_divisor: int = 32
+    mean: Tuple[float, float, float] = (123.675, 116.28, 103.53)
+    std: Tuple[float, float, float] = (58.395, 57.12, 57.375)
+    batch_size: int = 8  # global batch
+
+
+@dataclasses.dataclass(frozen=True)
+class ScheduleConfig:
+    lr: float = 1e-4
+    weight_decay: float = 0.05
+    backbone_lr_mult: float = 0.25
+    grad_clip_norm: float = 1.0
+    warmup_iters: int = 1000
+    warmup_ratio: float = 0.001
+    lr_decay_epochs: Tuple[int, ...] = (16, 22)
+    lr_decay_factor: float = 0.1
+    total_epochs: int = 24
+
+
+@dataclasses.dataclass(frozen=True)
+class ExperimentConfig:
+    model: ModelConfig = ModelConfig()
+    data: DataConfig = DataConfig()
+    schedule: ScheduleConfig = ScheduleConfig()
+
+
+def _debug_tiny() -> ExperimentConfig:
+    """Narrow widths and small crops for the CPU tests."""
+    return ExperimentConfig(
+        model=ModelConfig(out_channels=64, fpn_out_channels=64, feedforward_channels=128,
+                          num_proposals=20, max_things=8),
+        data=DataConfig(img_size=(128, 256), batch_size=1),
+        schedule=ScheduleConfig(warmup_iters=10, total_epochs=1, lr_decay_epochs=(1,)))
+
+
+def _debug_tiny_video() -> ExperimentConfig:
+    cfg = _debug_tiny()
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, with_track=True))
+
 
 PRESETS = {
+    # reference configs/polyphonic_image/poly_r50_cityscapes_2x.py
+    "image_r50_2x": lambda: ExperimentConfig(),
     # reference configs/polyphonic_video/poly_r50_cityscapes_1x.py
-    "video_r50_1x": lambda: ModelConfig(with_track=True),
-    # narrow widths for the CPU tests
-    "debug_tiny_video": lambda: ModelConfig(
-        out_channels=64, fpn_out_channels=64, feedforward_channels=128,
-        num_proposals=20, with_track=True),
+    "video_r50_1x": lambda: ExperimentConfig(
+        model=ModelConfig(with_track=True, rpn_depth_loss=DepthLossConfig(loss_weight=1.0)),
+        data=DataConfig(batch_size=16),
+        schedule=ScheduleConfig(lr=2e-4, total_epochs=12, lr_decay_epochs=(8, 11))),
+    "debug_tiny": _debug_tiny,
+    "debug_tiny_video": _debug_tiny_video,
 }
+
+
+def preset(name: str) -> ExperimentConfig:
+    """The JAX package's ``get_preset(name)``, restricted to the fields the
+    port reads."""
+    return PRESETS[name]()
 
 
 def model_preset(name: str, **replacements) -> ModelConfig:
     """The model configuration of the JAX package's preset ``name``
     (``get_preset(name).model``), with ``replacements`` applied."""
-    return dataclasses.replace(PRESETS[name](), **replacements)
+    return dataclasses.replace(preset(name).model, **replacements)

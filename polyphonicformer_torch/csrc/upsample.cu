@@ -1,7 +1,7 @@
 // Exact integer-factor bilinear upsample (align_corners=False, edge
-// replication), f32, forward only.
+// replication), f32, forward and backward.
 //
-// Replaces polyphonicformer_tpu/ops/pallas/upsample2.py::_call_fwd
+// The forward replaces polyphonicformer_tpu/ops/pallas/upsample2.py::_call_fwd
 // (upsample_int_pallas / upsample2_pallas).  On the H100 it is bound by
 // device memory: each output element reads four inputs that sit in L1/L2 and
 // writes one f32, about 145 MB per frame on the serving path.  One thread per
@@ -51,6 +51,57 @@ __global__ void upsample_int_fwd(const float* __restrict__ x, float* __restrict_
   }
 }
 
+// The backward replaces upsample2.py::_call_bwd: the transposed stencil of
+// _down_axis, columns first and then rows, as the JAX kernel applies it.
+// Bound by device memory: it reads the (n, fy*h, fx*w) gradient once and
+// writes (n, h, w).  One thread per source pixel; it gathers the <= 2f taps
+// per axis that reach it in the order of _down_axis, with the clamp terms
+// at the first and last row and column (a tap beyond the edge reads 0, as
+// the JAX halo of zeros does).  Each value of the column pass is recomputed
+// by the up to three source rows that need it, from L1/L2.  The same
+// __fmul_rn / __fadd_rn discipline makes it bit-equal to the plain version.
+
+// Transposed stencil along one axis at source index j of n: g(k) reads
+// the gradient at upsampled index k of this axis.
+template <typename G>
+__device__ __forceinline__ float down_axis(const G& g, int j, int n, int f) {
+  float dx = 0.f;
+  for (int p = 0; p < f; ++p) {
+    int base;
+    float w0, w1;
+    phase(p, f, base, w0, w1);
+    const float gp = g(j * f + p);
+    if (base == -1) {  // out_p[i] = w0 x[i-1] + w1 x[i]; clamp at i = 0
+      const float hi = j + 1 < n ? g((j + 1) * f + p) : 0.f;
+      dx = __fadd_rn(__fadd_rn(dx, __fmul_rn(w1, gp)), __fmul_rn(w0, hi));
+      dx = __fadd_rn(dx, j == 0 ? __fmul_rn(w0, gp) : 0.f);
+    } else {  // out_p[i] = w0 x[i] + w1 x[i+1]; clamp at i = n-1
+      const float lo = j > 0 ? g((j - 1) * f + p) : 0.f;
+      dx = __fadd_rn(__fadd_rn(dx, __fmul_rn(w0, gp)), __fmul_rn(w1, lo));
+      dx = __fadd_rn(dx, j == n - 1 ? __fmul_rn(w1, gp) : 0.f);
+    }
+  }
+  return dx;
+}
+
+__global__ void upsample_int_bwd(const float* __restrict__ g, float* __restrict__ dx,
+                                 long long total, int h, int w, int fy, int fx) {
+  const int wo = w * fx;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int ix = (int)(i % w);
+    const int iy = (int)((i / w) % h);
+    const long long n = i / ((long long)w * h);
+    const float* gn = g + n * h * fy * (long long)wo;
+    // column pass of upsampled row r at source column ix
+    const auto col = [&](int r) {
+      const float* row = gn + (long long)r * wo;
+      return down_axis([&](int k) { return row[k]; }, ix, w, fx);
+    };
+    dx[i] = down_axis(col, iy, h, fy);
+  }
+}
+
 }  // namespace
 
 // x: (n, h, w) f32 contiguous -> y: (n, h*fy, w*fx) f32 contiguous.
@@ -62,5 +113,17 @@ extern "C" int poly_upsample_int(const void* x, void* y, long long n, int h, int
   const unsigned blocks = (unsigned)(want < 132LL * 64 ? want : 132LL * 64);
   upsample_int_fwd<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<float*>(y), total, h, w, fy, fx);
+  return (int)cudaGetLastError();
+}
+
+// g: (n, h*fy, w*fx) f32 contiguous -> dx: (n, h, w) f32 contiguous.
+extern "C" int poly_upsample_int_bwd(const void* g, void* dx, long long n, int h, int w,
+                                     int fy, int fx, void* stream) {
+  const long long total = n * h * (long long)w;
+  const int threads = 256;
+  const long long want = (total + threads - 1) / threads;
+  const unsigned blocks = (unsigned)(want < 132LL * 64 ? want : 132LL * 64);
+  upsample_int_bwd<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(g), static_cast<float*>(dx), total, h, w, fy, fx);
   return (int)cudaGetLastError();
 }

@@ -35,7 +35,7 @@ class TrackerState:
         return dataclasses.replace(self, **changes)
 
 
-def init_tracker_state(cfg, embed_dim: int, device=None) -> TrackerState:
+def init_tracker_state(cfg, embed_dim: int, device="cuda") -> TrackerState:
     """cfg: a ``TrackerConfig``."""
     t, d = cfg.max_tracklets, cfg.max_detections
     bd = d * cfg.memo_backdrop_frames

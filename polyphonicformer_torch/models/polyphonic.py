@@ -13,6 +13,7 @@ from typing import NamedTuple, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .fpn import FPN
 from .kernel_head import KernelHead, RPNOutput
@@ -42,6 +43,9 @@ class PolyphonicFormer(nn.Module):
         if not cfg.backbone.startswith("resnet"):
             raise NotImplementedError(f"backbone {cfg.backbone!r} is not ported yet")
         self.backbone = ResNet(cfg.backbone)
+        self.backbone.freeze(cfg.frozen_stages)
+        # JAX nn.remat: the backward recomputes the backbone's activations
+        self.remat_backbone = cfg.remat_backbone
         self.neck = FPN((256, 512, 1024, 2048), cfg.fpn_out_channels)
         self.rpn_head = KernelHead(
             cfg.fpn_out_channels, cfg.out_channels, cfg.num_proposals,
@@ -57,7 +61,10 @@ class PolyphonicFormer(nn.Module):
 
     def extract_feat(self, img: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """img: (B, H, W, 3) normalized.  Returns FPN P2..P5, NCHW."""
-        return self.neck(self.backbone(img.permute(0, 3, 1, 2)))
+        x = img.permute(0, 3, 1, 2)
+        if self.remat_backbone and torch.is_grad_enabled():
+            return self.neck(checkpoint(self.backbone, x, use_reentrant=False))
+        return self.neck(self.backbone(x))
 
     def forward_heads(self, fpn_feats) -> ModelOutput:
         rpn = self.rpn_head(fpn_feats)
@@ -105,12 +112,13 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 p.copy_(draw)
 
 
-def build_model(cfg, device, generator: torch.Generator | None = None,
+def build_model(cfg, device="cuda", generator: torch.Generator | None = None,
                 state_dict=None) -> PolyphonicFormer:
     """A model on ``device`` in eval mode, its weights drawn from
     ``generator`` or loaded (``strict=True``) from ``state_dict``: exactly
     one of the two.  Built on the meta device first, so construction itself
-    draws nothing."""
+    draws nothing.  The parameters of the frozen backbone stages
+    (``cfg.frozen_stages``) have ``requires_grad=False``."""
     if (generator is None) == (state_dict is None):
         raise ValueError("give exactly one of generator and state_dict")
     with torch.device("meta"):

@@ -51,6 +51,14 @@ class ResNet(nn.Module):
             self.add_module(f"layer{i + 1}", layer)
             inplanes, planes = planes * 4, planes * 2
 
+    def freeze(self, frozen_stages: int) -> None:
+        """mmdet ``frozen_stages``: the stem and the first ``frozen_stages``
+        stages take no gradient (JAX ``train/optim.py::is_frozen``)."""
+        mods = [self.conv1, self.bn1] + [getattr(self, f"layer{i}")
+                                         for i in range(1, frozen_stages + 1)]
+        for mod in mods:
+            mod.requires_grad_(False)
+
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """x: (B, 3, H, W) normalized. Returns C2..C5 (strides 4/8/16/32)."""
         y = F.relu(self.bn1(self.conv1(x)))

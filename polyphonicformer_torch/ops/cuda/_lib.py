@@ -1,7 +1,8 @@
 """Build, load and launch the hand-written CUDA kernels of ``csrc/``.
 
-All ``csrc/*.cu`` files compile with ``nvcc`` into one shared library with a
-plain C interface, loaded through ``ctypes``.  The library lands in
+Each ``csrc/*.cu`` file compiles with its own ``nvcc`` process, all started
+together, and the objects link into one shared library with a plain C
+interface, loaded through ``ctypes``.  The library lands in
 ``polyphonicformer_torch/_build/`` (git-ignored) under a name keyed by a hash
 of the sources and flags, so an edited source rebuilds.  The build happens
 the first time any wrapper is called on a CUDA tensor; importing this module
@@ -28,7 +29,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -54,6 +55,17 @@ def library_path() -> Path:
     return BUILD_DIR / f"libpoly_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _run(procs) -> None:
+    """Wait for every (cmd, Popen); raise with the output of a failed one."""
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{out}{err}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
 def load() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
     global _lib, build_seconds
@@ -62,17 +74,24 @@ def load() -> ctypes.CDLL:
             return _lib
         so = library_path()
         if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *map(str, sorted(CSRC.glob("*.cu")))]
+            tmp_dir = BUILD_DIR / f"{so.stem}.{os.getpid()}.tmp"
+            tmp_dir.mkdir(parents=True, exist_ok=True)
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+            objs, procs = [], []
+            for src in sorted(CSRC.glob("*.cu")):
+                obj = tmp_dir / f"{src.stem}.o"
+                cmd = [_nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                objs.append(str(obj))
+                procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                    stderr=subprocess.PIPE, text=True)))
+            _run(procs)
+            tmp = tmp_dir / so.name
+            cmd = [_nvcc(), "-shared", "-o", str(tmp), *objs]
+            _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                         text=True))])
             build_seconds = time.perf_counter() - t0
             os.replace(tmp, so)
+            shutil.rmtree(tmp_dir, ignore_errors=True)
         _lib = ctypes.CDLL(str(so))
         return _lib
 

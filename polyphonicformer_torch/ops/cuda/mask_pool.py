@@ -5,7 +5,11 @@ Replaces ``polyphonicformer_tpu/ops/pallas/mask_pool.py::_masked_pool_tpu``
 ``csrc/mask_pool.cu``: a split-HW skinny GEMM with the threshold applied
 while the mask tile is staged, f32 accumulation and a deterministic second
 pass over the splits (the source note there gives the bound and design).
-Forward only; the backward waits for the training slice.
+:func:`masked_pool` is a ``torch.autograd.Function`` with the JAX custom
+VJP (``mask_pool.py::_bwd``): zero gradient to the logits (a hard
+threshold) and ``hard^T @ g`` to the features, in their dtype.  In the JAX
+package that product is an XLA einsum outside any Pallas kernel; here it is
+``torch.matmul``.
 """
 from __future__ import annotations
 
@@ -62,17 +66,34 @@ def _mask_pool_cuda(mask_logits: torch.Tensor, feats: torch.Tensor,
     return out
 
 
+class _MaskedPool(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mask_logits: torch.Tensor, feats: torch.Tensor,
+                thr: float) -> torch.Tensor:
+        ctx.save_for_backward(mask_logits)
+        ctx.thr, ctx.feats_dtype = thr, feats.dtype
+        if mask_logits.is_cuda:
+            return _mask_pool_cuda(mask_logits, feats, thr)
+        if mask_logits.device.type == "cpu":
+            return mask_pool_plain(mask_logits, feats, thr)
+        raise ValueError(f"masked_pool: unsupported device {mask_logits.device}")
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (mask_logits,) = ctx.saved_tensors
+        b, n, h, w = mask_logits.shape
+        hard = (torch.sigmoid(mask_logits.float()) > ctx.thr).float().reshape(b, n, h * w)
+        dfeat = torch.matmul(hard.transpose(1, 2), g.float())  # (B, hw, C)
+        return None, dfeat.reshape(b, h, w, -1).to(ctx.feats_dtype), None
+
+
 def masked_pool(mask_logits: torch.Tensor, feats: torch.Tensor,
                 thr: float = 0.5) -> torch.Tensor:
     """Batched hard-mask pooling in f32.
 
     mask_logits: (B, N, h, w); feats: (B, h, w, C), any strides whose (h, w)
     axes flatten (a permuted NCHW tensor is taken as it is).  Returns
-    (B, N, C) float32.  A CUDA tensor launches the kernel; a CPU tensor
-    takes the plain version.
+    (B, N, C) float32, differentiable in ``feats``.  A CUDA tensor launches
+    the kernel; a CPU tensor takes the plain version.
     """
-    if mask_logits.is_cuda:
-        return _mask_pool_cuda(mask_logits, feats, thr)
-    if mask_logits.device.type == "cpu":
-        return mask_pool_plain(mask_logits, feats, thr)
-    raise ValueError(f"masked_pool: unsupported device {mask_logits.device}")
+    return _MaskedPool.apply(mask_logits, feats, thr)

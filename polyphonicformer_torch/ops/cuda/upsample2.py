@@ -1,12 +1,15 @@
-"""Exact integer-factor bilinear upsample, K2 (forward).
+"""Exact integer-factor bilinear upsample, K2 (forward) and K2b (backward).
 
-Replaces ``polyphonicformer_tpu/ops/pallas/upsample2.py::_call_fwd``
-(``upsample_int_pallas`` / ``upsample2_pallas``): align_corners=False with
-edge replication, in f32, rows first and then columns with the phase
-weights of ``ops/resize.py::_phase_weights``.  The CUDA kernel is
-``csrc/upsample.cu`` (one thread per output element; the source note there
-gives the bound and design).  The transposed-stencil backward is training
-work and waits.
+Replaces ``polyphonicformer_tpu/ops/pallas/upsample2.py::_call_fwd`` and
+``_call_bwd`` (``upsample_int_pallas`` / ``upsample2_pallas`` and its custom
+VJP): align_corners=False with edge replication, in f32, rows first and
+then columns with the phase weights of ``ops/resize.py::_phase_weights``;
+the gradient is the exact transposed stencil (``_down_axis``), columns
+first and then rows.  The CUDA kernels are in ``csrc/upsample.cu`` (one
+thread per output element forward, one per source element backward; the
+source notes there give the bound and design).  :func:`upsample_int` is a
+``torch.autograd.Function``: a CUDA tensor launches the kernels in both
+directions, a CPU tensor takes the plain versions in both.
 """
 from __future__ import annotations
 
@@ -15,6 +18,8 @@ import torch
 from . import _lib
 
 KERNEL = _lib.Kernel("poly_upsample_int", [
+    _lib.P, _lib.P, _lib.I64, _lib.I32, _lib.I32, _lib.I32, _lib.I32])
+KERNEL_BWD = _lib.Kernel("poly_upsample_int_bwd", [
     _lib.P, _lib.P, _lib.I64, _lib.I32, _lib.I32, _lib.I32, _lib.I32])
 
 
@@ -53,22 +58,86 @@ def upsample_int_plain(x: torch.Tensor, fy: int, fx: int) -> torch.Tensor:
     return upsample_axis_plain(upsample_axis_plain(x, fy, -2), fx, -1)
 
 
-def _upsample_int_cuda(x: torch.Tensor, fy: int, fx: int) -> torch.Tensor:
-    _lib.check_cuda("x", x, (torch.float32,), ndim=3)
+def downsample_axis_plain(g: torch.Tensor, factor: int, dim: int) -> torch.Tensor:
+    """The transposed stencil of :func:`upsample_axis_plain` along ``dim``,
+    written out as ``_down_axis`` computes it: per phase, the gradient of
+    the phase's own tap, then of the neighbour's (0 beyond the edge), then
+    the clamp term at the first or last index, each multiply and add a
+    separate f32 op."""
+    g = g.movedim(dim, -1)
+    n = g.shape[-1] // factor
+    s = g.reshape(*g.shape[:-1], n, factor)
+    zeros = torch.zeros_like(s[..., :1, :])
+    s_lo = torch.cat([zeros, s[..., :-1, :]], dim=-2)  # s_lo[i] = s[i-1]
+    s_hi = torch.cat([s[..., 1:, :], zeros], dim=-2)  # s_hi[i] = s[i+1]
+    idx = torch.arange(n, device=g.device)
+    first, last = idx == 0, idx == n - 1
+    dx = torch.zeros_like(s[..., 0])
+    for p, (base, w0, w1) in enumerate(phase_weights(factor)):
+        gp = s[..., p]
+        if base == -1:  # out_p[i] = w0 x[i-1] + w1 x[i]; clamp at i = 0
+            dx = dx + w1 * gp + w0 * s_hi[..., p]
+            dx = dx + torch.where(first, w0 * gp, 0.0)
+        else:  # out_p[i] = w0 x[i] + w1 x[i+1]; clamp at i = n-1
+            dx = dx + w0 * gp + w1 * s_lo[..., p]
+            dx = dx + torch.where(last, w1 * gp, 0.0)
+    return dx.movedim(-1, dim)
+
+
+def upsample_int_bwd_plain(g: torch.Tensor, fy: int, fx: int) -> torch.Tensor:
+    """g (N, fy*h, fx*w) f32 -> (N, h, w) f32: columns, then rows."""
+    return downsample_axis_plain(downsample_axis_plain(g, fx, -1), fy, -2)
+
+
+def _check_factors(fy: int, fx: int) -> None:
     if not (1 <= fy <= 8 and 1 <= fx <= 8):
         raise ValueError(f"upsample factors must lie in [1, 8], got {fy}, {fx}")
+
+
+def _upsample_int_cuda(x: torch.Tensor, fy: int, fx: int) -> torch.Tensor:
+    _lib.check_cuda("x", x, (torch.float32,), ndim=3)
+    _check_factors(fy, fx)
     n, h, w = x.shape
     y = torch.empty((n, h * fy, w * fx), device=x.device, dtype=torch.float32)
     KERNEL.launch(x.data_ptr(), y.data_ptr(), n, h, w, fy, fx)
     return y
 
 
-def upsample_int(x: torch.Tensor, fy: int, fx: int | None = None) -> torch.Tensor:
-    """x (N, h, w) f32 -> (N, fy*h, fx*w) f32.  A CUDA tensor launches the
-    kernel; a CPU tensor takes the plain version."""
-    fx = fy if fx is None else fx
+def _upsample_int_bwd_cuda(g: torch.Tensor, fy: int, fx: int) -> torch.Tensor:
+    _lib.check_cuda("g", g, (torch.float32,), ndim=3)
+    _check_factors(fy, fx)
+    n, fh, fw = g.shape
+    if fh % fy or fw % fx:
+        raise ValueError(f"gradient {tuple(g.shape)} is not a x({fy}, {fx}) upsample")
+    dx = torch.empty((n, fh // fy, fw // fx), device=g.device, dtype=torch.float32)
+    KERNEL_BWD.launch(g.data_ptr(), dx.data_ptr(), n, fh // fy, fw // fx, fy, fx)
+    return dx
+
+
+def _on(x: torch.Tensor, cuda_fn, plain_fn, *args):
+    """A CUDA tensor launches the kernel; a CPU tensor takes the plain version."""
     if x.is_cuda:
-        return _upsample_int_cuda(x, fy, fx)
+        return cuda_fn(x, *args)
     if x.device.type == "cpu":
-        return upsample_int_plain(x, fy, fx)
+        return plain_fn(x, *args)
     raise ValueError(f"upsample_int: unsupported device {x.device}")
+
+
+class _UpsampleInt(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, fy: int, fx: int) -> torch.Tensor:
+        ctx.factors = (fy, fx)
+        return _on(x, _upsample_int_cuda, upsample_int_plain, fy, fx)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        fy, fx = ctx.factors
+        return _on(g.contiguous(), _upsample_int_bwd_cuda, upsample_int_bwd_plain,
+                   fy, fx), None, None
+
+
+def upsample_int(x: torch.Tensor, fy: int, fx: int | None = None) -> torch.Tensor:
+    """x (N, h, w) f32 -> (N, fy*h, fx*w) f32, differentiable in ``x``.  A
+    CUDA tensor launches the kernels (forward K2, backward K2b); a CPU
+    tensor takes the plain versions."""
+    return _UpsampleInt.apply(x, fy, fy if fx is None else fx)

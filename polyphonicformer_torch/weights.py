@@ -1,25 +1,218 @@
 """Weight bridge between the JAX package's variables and the port's
-``state_dict``, through the reference checkpoint key mapping of
-``polyphonicformer_tpu/tools/convert_torch_ckpt.py``.
+``state_dict``, through the reference checkpoint's key mapping.
 
-JAX -> port: :func:`from_jax_variables` walks ``build_param_mapping`` and
-applies ``_inverse_transform``.  Port -> JAX: ``convert_state_dict`` as it
-stands, on ``{k: v.numpy()}`` of the port's ``state_dict()``.  The
-``linear_chw2hwc_7`` entry (``track_head.fcs.0``) maps onto the C-major
-flatten of the port's NCHW RoI features.
+The port's own copy of the ResNet part of
+``polyphonicformer_tpu/tools/convert_torch_ckpt.py`` (``build_param_mapping``
+and its helpers, the layout transforms and the tree flattening), so the
+port imports nothing of the JAX package; ``tests/test_torch_weights.py``
+pins the copy to the original.  Every flax parameter path ('a/b/c', with a
+``BATCHSTATS::`` prefix for the statistics collection) maps onto one key of
+the reference model's state dict and a layout transform:
+
+  conv weight   (O, I, kh, kw) -> (kh, kw, I, O)
+  linear weight (O, I)         -> (I, O)
+  1x1 query convs (N, C, 1, 1) -> (N, C)
+  track_head.fcs.0 (O, C*7*7) C-major -> (7*7*C, O) HWC-major
+
+JAX -> port: :func:`from_jax_variables`.  Port -> JAX:
+:func:`to_jax_variables` on :func:`to_numpy_state_dict` (also used on a
+dict of gradients, which share the parameters' keys).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
-from polyphonicformer_tpu.tools.convert_torch_ckpt import (
-    _inverse_transform,
-    build_param_mapping,
-    flatten_tree,
-)
+_STAGE_BLOCKS = {"resnet50": (3, 4, 6, 3)}
+
+Mapping = Dict[str, Tuple[str, str]]
+
+
+def _convnormact(torch_prefix: str, has_gn: bool = True) -> Mapping:
+    out = {"conv/kernel": (f"{torch_prefix}.conv.weight", "conv")}
+    if has_gn:
+        out["gn/scale"] = (f"{torch_prefix}.gn.weight", "copy")
+        out["gn/bias"] = (f"{torch_prefix}.gn.bias", "copy")
+    else:
+        out["conv/bias"] = (f"{torch_prefix}.conv.bias", "copy")
+    return out
+
+
+def _prefix(entries: Mapping, flax_prefix: str) -> Mapping:
+    return {f"{flax_prefix}/{k}": v for k, v in entries.items()}
+
+
+def _linear(flax_path: str, torch_prefix: str, bias: bool = True) -> Mapping:
+    out = {f"{flax_path}/kernel": (f"{torch_prefix}.weight", "linear")}
+    if bias:
+        out[f"{flax_path}/bias"] = (f"{torch_prefix}.bias", "copy")
+    return out
+
+
+def _ln(flax_path: str, torch_prefix: str) -> Mapping:
+    return {f"{flax_path}/scale": (f"{torch_prefix}.weight", "copy"),
+            f"{flax_path}/bias": (f"{torch_prefix}.bias", "copy")}
+
+
+def _frozen_bn(flax_path: str, torch_prefix: str) -> Mapping:
+    return {
+        f"{flax_path}/scale": (f"{torch_prefix}.weight", "copy"),
+        f"{flax_path}/bias": (f"{torch_prefix}.bias", "copy"),
+        f"BATCHSTATS::{flax_path}/mean": (f"{torch_prefix}.running_mean", "copy"),
+        f"BATCHSTATS::{flax_path}/var": (f"{torch_prefix}.running_var", "copy"),
+    }
+
+
+def build_param_mapping(num_stages: int = 3, depth: str = "resnet50",
+                        with_track: bool = False, num_cls_fcs: int = 1,
+                        num_mask_fcs: int = 1) -> Mapping:
+    """flax path -> (torch state_dict key, transform), ResNet backbones."""
+    if depth not in _STAGE_BLOCKS:
+        raise NotImplementedError(f"backbone {depth!r} is not ported yet")
+    m: Mapping = {"backbone/conv1/kernel": ("backbone.conv1.weight", "conv")}
+    m.update(_frozen_bn("backbone/bn1", "backbone.bn1"))
+    for s, blocks in enumerate(_STAGE_BLOCKS[depth]):
+        for b in range(blocks):
+            fp = f"backbone/layer{s + 1}_{b}"
+            tp = f"backbone.layer{s + 1}.{b}"
+            for c in (1, 2, 3):
+                m[f"{fp}/conv{c}/kernel"] = (f"{tp}.conv{c}.weight", "conv")
+                m.update(_frozen_bn(f"{fp}/bn{c}", f"{tp}.bn{c}"))
+            if b == 0:
+                m[f"{fp}/downsample_conv/kernel"] = (f"{tp}.downsample.0.weight", "conv")
+                m.update(_frozen_bn(f"{fp}/downsample_bn", f"{tp}.downsample.1"))
+
+    for i in range(4):
+        m[f"neck/lateral_{i}/kernel"] = (f"neck.lateral_convs.{i}.conv.weight", "conv")
+        m[f"neck/lateral_{i}/bias"] = (f"neck.lateral_convs.{i}.conv.bias", "copy")
+        m[f"neck/fpn_{i}/kernel"] = (f"neck.fpn_convs.{i}.conv.weight", "conv")
+        m[f"neck/fpn_{i}/bias"] = (f"neck.fpn_convs.{i}.conv.bias", "copy")
+
+    sf, tsf = "rpn_head/localization_fpn", "rpn_head.localization_fpn"
+    for lvl, convs in {0: [0], 1: [0], 2: [0, 1], 3: [0, 1, 2]}.items():
+        for j in convs:
+            m.update(_prefix(_convnormact(f"{tsf}.convs_all_levels.{lvl}.conv{j}"),
+                             f"{sf}/lvl{lvl}_conv{j}"))
+    m.update(_prefix(_convnormact(f"{tsf}.conv_pred"), f"{sf}/conv_pred"))
+    for i in range(2):
+        m.update(_prefix(_convnormact(f"{tsf}.aux_convs.{i}"), f"{sf}/aux_conv{i}"))
+    for name in ("loc", "seg", "depth"):
+        m.update(_prefix(_convnormact(f"rpn_head.{name}_convs.0"), f"rpn_head/{name}_conv0"))
+    m["rpn_head/init_kernels"] = ("rpn_head.init_kernels.weight", "squeeze11")
+    m["rpn_head/conv_seg_weight"] = ("rpn_head.conv_seg.weight", "squeeze11")
+    m["rpn_head/conv_seg_bias"] = ("rpn_head.conv_seg.bias", "copy")
+    m["rpn_head/conv_direct_depth_weight"] = ("rpn_head.conv_direct_depth.weight", "squeeze11")
+    m["rpn_head/conv_direct_depth_bias"] = ("rpn_head.conv_direct_depth.bias", "copy")
+
+    for s in range(num_stages):
+        fp, tp = f"mask_head_{s}", f"roi_head.mask_head.{s}"
+        for t in ("feat_transform", "feat_depth_transform"):
+            m[f"{fp}/{t}/kernel"] = (f"{tp}.{t}.conv.weight", "conv")
+            m[f"{fp}/{t}/bias"] = (f"{tp}.{t}.conv.bias", "copy")
+        for ku in ("kernel_update_conv", "kernel_update_conv_depth"):
+            for lin in ("dynamic_layer", "input_layer", "input_gate", "update_gate",
+                        "fc_layer"):
+                m.update(_linear(f"{fp}/{ku}/{lin}", f"{tp}.{ku}.{lin}"))
+            for ln in ("norm_in", "norm_out", "input_norm_in", "input_norm_out", "fc_norm"):
+                m.update(_ln(f"{fp}/{ku}/{ln}", f"{tp}.{ku}.{ln}"))
+        for att in ("attention", "attention_depth"):
+            m[f"{fp}/{att}/in_proj_weight"] = (f"{tp}.{att}.attn.in_proj_weight", "copy")
+            m[f"{fp}/{att}/in_proj_bias"] = (f"{tp}.{att}.attn.in_proj_bias", "copy")
+            m[f"{fp}/{att}/out_proj_weight"] = (f"{tp}.{att}.attn.out_proj.weight", "copy")
+            m[f"{fp}/{att}/out_proj_bias"] = (f"{tp}.{att}.attn.out_proj.bias", "copy")
+        m.update(_ln(f"{fp}/attention_norm", f"{tp}.attention_norm"))
+        m.update(_ln(f"{fp}/attention_norm_depth", f"{tp}.attention_norm_depth"))
+        for ffn in ("ffn", "ffn_depth"):
+            m.update(_linear(f"{fp}/{ffn}/fc1", f"{tp}.{ffn}.layers.0.0"))
+            m.update(_linear(f"{fp}/{ffn}/fc2", f"{tp}.{ffn}.layers.1"))
+        m.update(_ln(f"{fp}/ffn_norm", f"{tp}.ffn_norm"))
+        m.update(_ln(f"{fp}/ffn_norm_depth", f"{tp}.ffn_norm_depth"))
+        # the reference interleaves [Linear, LN, ReLU] (depth: [Linear, LN])
+        for i in range(num_cls_fcs):
+            m.update(_linear(f"{fp}/cls_fc{i}", f"{tp}.cls_fcs.{3 * i}", bias=False))
+            m.update(_ln(f"{fp}/cls_ln{i}", f"{tp}.cls_fcs.{3 * i + 1}"))
+        for i in range(num_mask_fcs):
+            m.update(_linear(f"{fp}/mask_fc{i}", f"{tp}.mask_fcs.{3 * i}", bias=False))
+            m.update(_ln(f"{fp}/mask_ln{i}", f"{tp}.mask_fcs.{3 * i + 1}"))
+            m.update(_linear(f"{fp}/depth_fc{i}", f"{tp}.depth_regs.{2 * i}", bias=False))
+            m.update(_ln(f"{fp}/depth_ln{i}", f"{tp}.depth_regs.{2 * i + 1}"))
+        for lin in ("fc_cls", "fc_mask", "fc_depth"):
+            m.update(_linear(f"{fp}/{lin}", f"{tp}.{lin}"))
+
+    if with_track:
+        for i in range(4):
+            m.update(_prefix(_convnormact(f"track_head.convs.{i}"),
+                             f"track_head/embed_mlp/conv{i}"))
+        m["track_head/embed_mlp/fc0/kernel"] = ("track_head.fcs.0.weight", "linear_chw2hwc_7")
+        m["track_head/embed_mlp/fc0/bias"] = ("track_head.fcs.0.bias", "copy")
+        m.update(_linear("track_head/embed_mlp/fc_embed", "track_head.fc_embed"))
+    return m
+
+
+def _transform(arr: np.ndarray, kind: str) -> np.ndarray:
+    """torch layout -> JAX layout."""
+    if kind == "copy":
+        return arr
+    if kind == "conv":
+        return np.transpose(arr, (2, 3, 1, 0))
+    if kind == "linear":
+        return np.transpose(arr, (1, 0))
+    if kind == "squeeze11":
+        return arr[:, :, 0, 0]
+    if kind.startswith("linear_chw2hwc_"):
+        k = int(kind.rsplit("_", 1)[1])
+        o, ckk = arr.shape
+        c = ckk // (k * k)
+        return np.transpose(arr.reshape(o, c, k, k).transpose(0, 2, 3, 1).reshape(o, -1), (1, 0))
+    raise ValueError(kind)
+
+
+def _inverse_transform(arr: np.ndarray, kind: str) -> np.ndarray:
+    """JAX layout -> torch layout."""
+    if kind == "copy":
+        return arr
+    if kind == "conv":
+        return np.transpose(arr, (3, 2, 0, 1))
+    if kind == "linear":
+        return np.transpose(arr, (1, 0))
+    if kind == "squeeze11":
+        return arr[:, :, None, None]
+    if kind.startswith("linear_chw2hwc_"):
+        k = int(kind.rsplit("_", 1)[1])
+        kkc, o = arr.shape
+        c = kkc // (k * k)
+        w = np.transpose(arr, (1, 0)).reshape(o, k, k, c)
+        return w.transpose(0, 3, 1, 2).reshape(o, -1)
+    raise ValueError(kind)
+
+
+def flatten_tree(tree, prefix: str = "") -> Dict:
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(flatten_tree(v, path))
+        else:
+            out[path] = v
+    return out
+
+
+def unflatten_tree(flat: Dict) -> Dict:
+    tree: Dict = {}
+    for path, v in flat.items():
+        parts = path.split("/")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return tree
+
+
+def _mapping(cfg) -> Mapping:
+    return build_param_mapping(cfg.num_stages, cfg.backbone, cfg.with_track,
+                               cfg.num_cls_fcs, cfg.num_mask_fcs)
 
 
 def from_jax_variables(variables_np, cfg) -> Dict[str, torch.Tensor]:
@@ -27,10 +220,8 @@ def from_jax_variables(variables_np, cfg) -> Dict[str, torch.Tensor]:
     state_dict with the reference torch keys (f32 CPU tensors)."""
     params = flatten_tree(variables_np["params"])
     stats = flatten_tree(variables_np.get("batch_stats", {}))
-    mapping = build_param_mapping(cfg.num_stages, cfg.backbone, cfg.with_track,
-                                  cfg.num_cls_fcs, cfg.num_mask_fcs)
     sd = {}
-    for path, (key, kind) in mapping.items():
+    for path, (key, kind) in _mapping(cfg).items():
         if path.startswith("BATCHSTATS::"):
             arr = stats[path[len("BATCHSTATS::"):]]
         else:
@@ -40,7 +231,28 @@ def from_jax_variables(variables_np, cfg) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def to_jax_variables(state_dict_np: Dict[str, np.ndarray], cfg,
+                     partial: bool = False) -> Dict:
+    """A state dict of numpy arrays -> {'params': ..., 'batch_stats': ...}
+    in the JAX layout (what ``convert_state_dict`` computes).  ``partial``
+    skips the keys the dict lacks (a dict of gradients has no frozen or
+    statistics entries) instead of raising."""
+    params, stats, missing = {}, {}, []
+    for path, (key, kind) in _mapping(cfg).items():
+        if key not in state_dict_np:
+            missing.append(key)
+            continue
+        arr = _transform(np.asarray(state_dict_np[key]), kind)
+        if path.startswith("BATCHSTATS::"):
+            stats[path[len("BATCHSTATS::"):]] = arr
+        else:
+            params[path] = arr
+    if missing and not partial:
+        raise KeyError(f"{len(missing)} torch keys missing, e.g. {missing[:5]}")
+    return {"params": unflatten_tree(params), "batch_stats": unflatten_tree(stats)}
+
+
 def to_numpy_state_dict(model: torch.nn.Module) -> Dict[str, np.ndarray]:
-    """The port's state_dict as numpy arrays, the input of
-    ``convert_state_dict``."""
-    return {k: v.detach().float().cpu().numpy() for k, v in model.state_dict().items()}
+    """A copy of the port's state_dict as f32 numpy arrays, the input of
+    :func:`to_jax_variables`."""
+    return {k: v.detach().float().cpu().numpy().copy() for k, v in model.state_dict().items()}

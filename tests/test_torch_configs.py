@@ -1,11 +1,12 @@
 """The port's configuration against the JAX package's: every field of a port
-preset equals the field of the same name in ``get_preset(name).model``."""
+preset equals the field of the same name in ``get_preset(name)``, for the
+model, data and schedule parts."""
 import dataclasses
 
 import pytest
 
 from polyphonicformer_tpu.configs import get_preset
-from polyphonicformer_torch.configs import PRESETS, model_preset
+from polyphonicformer_torch.configs import PRESETS, model_preset, preset
 
 
 def _assert_fields_equal(port, ref, path):
@@ -22,4 +23,20 @@ def test_preset_matches_jax(name):
     ref = get_preset(name).model
     _assert_fields_equal(model_preset(name), ref, name)
     assert model_preset(name).num_classes == ref.num_classes
+    assert model_preset(name).num_queries == ref.num_queries
 
+
+@pytest.mark.parametrize("name", sorted(PRESETS))
+def test_training_fields_match_jax(name):
+    """Loss weights, assigners, schedule and data normalisation."""
+    ref = get_preset(name)
+    port = preset(name)
+    _assert_fields_equal(port.data, ref.data, f"{name}.data")
+    _assert_fields_equal(port.schedule, ref.schedule, f"{name}.schedule")
+
+
+def test_training_presets_are_ported():
+    assert {"image_r50_2x", "debug_tiny"} <= set(PRESETS)
+    cfg = preset("image_r50_2x")
+    assert cfg.model.remat_backbone and not cfg.model.with_track
+    assert cfg.data.img_size == (1024, 2048)

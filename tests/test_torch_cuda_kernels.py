@@ -8,7 +8,8 @@ Marked ``cuda``: without a card every test skips.  On the card:
 import pytest
 import torch
 
-from polyphonicformer_torch.ops.cuda import map_render, mask_pool, phase_fusion, upsample2
+from polyphonicformer_torch.ops.cuda import (lsa, map_render, mask_loss, mask_pool,
+                                             phase_fusion, upsample2)
 
 pytestmark = pytest.mark.cuda
 
@@ -81,6 +82,78 @@ def test_map_render(dev):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("fy,fx", [(2, 2), (4, 4), (3, 2), (1, 4)])
+def test_upsample_bwd_bit_equal(dev, fy, fx):
+    """K2b against its plain version, and through autograd."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    grad = torch.randn((3, 13 * fy, 29 * fx), generator=g, device=dev)
+    before = upsample2.KERNEL_BWD.launches
+    got = upsample2._upsample_int_bwd_cuda(grad, fy, fx)
+    assert torch.equal(got, upsample2.upsample_int_bwd_plain(grad, fy, fx))
+    x = torch.randn((3, 13, 29), generator=g, device=dev, requires_grad=True)
+    upsample2.upsample_int(x, fy, fx).backward(grad)
+    assert torch.equal(x.grad, got)
+    assert upsample2.KERNEL_BWD.launches == before + 2
+
+
+@pytest.mark.parametrize("g_rows,p_cols", [(64, 100), (12, 20), (40, 40), (7, 130)])
+def test_lsa_equals_plain(dev, g_rows, p_cols):
+    """K5: the same assignments as the plain solver, with ties, clamped
+    non-finite costs and invalid rows in the middle."""
+    from polyphonicformer_torch.ops.hungarian import match_gt_to_preds_batched
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    costs = torch.randn((6, g_rows, p_cols), generator=gen, device=dev) * 3
+    costs[:, :, ::7] = costs[:, :, ::7].round()
+    costs[0] = costs[0].round()
+    costs[4, 2, 0] = float("nan")
+    valid = torch.rand((6, g_rows), generator=gen, device=dev) > 0.4
+    valid[1] = False
+    valid[2] = True
+    valid[3, ::2] = False
+    got = match_gt_to_preds_batched(costs, valid)
+    want = match_gt_to_preds_batched(costs.cpu(), valid.cpu())
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(match_gt_to_preds_batched(costs, valid), got)  # deterministic
+
+
+@pytest.mark.parametrize("shape", [(2, 7, 16, 128), (3, 111, 37, 45), (1, 100, 64, 128)])
+def test_mask_loss_equals_plain(dev, shape):
+    """K6 / K6b: stats and dice within rtol 1e-5 of the plain version, dm
+    within rtol 1e-5 + atol 1e-7; any H and W; deterministic."""
+    n, q, h, w = shape
+    gen = torch.Generator(device=dev).manual_seed(6)
+    m = torch.randn(shape, generator=gen, device=dev) * 3
+    t = (torch.rand(shape, generator=gen, device=dev) < 0.3).float()
+    pos = (torch.rand((n, q), generator=gen, device=dev) < 0.5).float()
+    valid = (torch.rand((n, h, w), generator=gen, device=dev) < 0.9).float()
+    lbl = torch.randint(-1, q + 2, (n, h, w), generator=gen, device=dev, dtype=torch.int32)
+    lbl[torch.rand((n, h, w), generator=gen, device=dev) < 0.2] = 255
+    stats, dice = mask_loss._stats_cuda(m, t, pos, valid, lbl)
+    ws, wd = mask_loss.mask_loss_stats_plain(m, t, pos, valid, lbl)
+    torch.testing.assert_close(stats, ws, rtol=1e-5, atol=1e-7 * h * w)
+    torch.testing.assert_close(dice, wd, rtol=1e-5, atol=1e-7 * h * w)
+    again = mask_loss._stats_cuda(m, t, pos, valid, lbl)
+    assert torch.equal(again[0], stats) and torch.equal(again[1], dice)
+    gs = torch.randn((n, 2), generator=gen, device=dev)
+    gd = torch.randn((n, 3, q), generator=gen, device=dev)
+    dm = mask_loss._grad_cuda(m, t, pos, valid, lbl, gs, gd)
+    torch.testing.assert_close(dm, mask_loss.mask_loss_grad_plain(m, t, pos, valid, lbl, gs, gd),
+                               rtol=1e-5, atol=1e-7)
+
+
+def test_mask_pool_backward(dev):
+    """K1's backward on the card equals the CPU's (hard^T @ g)."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    logits = torch.randn((2, 9, 8, 16), generator=g, device=dev)
+    feats = torch.randn((2, 12, 8, 16), generator=g, device=dev, requires_grad=True)
+    grad = torch.randn((2, 9, 12), generator=g, device=dev)
+    mask_pool.masked_pool(logits, feats.permute(0, 2, 3, 1)).backward(grad)
+    fc = feats.detach().cpu().requires_grad_()
+    mask_pool.masked_pool(logits.cpu(), fc.permute(0, 2, 3, 1)).backward(grad.cpu())
+    torch.testing.assert_close(feats.grad.cpu(), fc.grad, rtol=1e-6, atol=1e-6)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(TypeError):
         upsample2.upsample_int(torch.zeros((1, 4, 4), device=dev, dtype=torch.float16), 2)
@@ -89,6 +162,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(NotImplementedError):
         z = torch.zeros((8, 4, 4), device=dev)
         phase_fusion.phase_fusion(z, torch.zeros(8, device=dev), z, 3, 3)
+    with pytest.raises(ValueError):  # more rows than columns
+        lsa.solve_lsa(torch.zeros((1, 5, 4), device=dev),
+                      torch.ones((1, 5), dtype=torch.bool, device=dev))
+    with pytest.raises(ValueError):
+        z = torch.zeros((1, 3, 4, 4), device=dev)
+        mask_loss.mask_loss_stats(z, z, torch.zeros((1, 2), device=dev),
+                                  torch.zeros((1, 4, 4), device=dev),
+                                  torch.zeros((1, 4, 4), dtype=torch.int32, device=dev))
 
 
 def test_video_frame_step_never_syncs(dev):
@@ -113,3 +194,33 @@ def test_video_frame_step_never_syncs(dev):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert out.semantic.shape == (64, 128)
+
+
+def test_train_step_never_syncs(dev):
+    """After a warm-up step, one debug_tiny train step on the card (K1,
+    K2, K2b, K5, K6, K6b, AdamW and the non-finite guard) reads nothing
+    back to the host, and each new kernel is launched."""
+    from polyphonicformer_torch.configs import preset
+    from polyphonicformer_torch.data.synthetic import synthetic_batch
+    from polyphonicformer_torch.models import PolyphonicFormer
+    from polyphonicformer_torch.train.step import create_train_state, make_train_step
+
+    cfg = preset("debug_tiny")
+    with torch.device("meta"):
+        model = PolyphonicFormer(cfg.model)
+    state, opt = create_train_state(model, cfg, torch.Generator(device=dev).manual_seed(0),
+                                    device=dev)
+    step = make_train_step(state.model, cfg, opt)
+    batch = synthetic_batch(cfg.model, 1, (64, 128), seed=0, device=dev)
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    kernels = (upsample2.KERNEL_BWD, lsa.KERNEL, mask_loss.KERNEL, mask_loss.KERNEL_BWD)
+    before = [k.launches for k in kernels]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, metrics = step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert [k.launches - b for k, b in zip(kernels, before)] == [4, 1, 2, 2]
+    assert float(metrics["skipped_nonfinite"]) == 0.0
+    assert bool(torch.isfinite(metrics["total_loss"]))

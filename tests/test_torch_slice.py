@@ -87,7 +87,7 @@ def test_video_frame_step_matches_jax(models, fusion, monkeypatch):
     jdt, tdt = DTYPES[fusion]
     step = jpipe.make_video_step(jm, cfg, (H, W), fusion_dtype=jdt)
     js = jax_init_state(cfg.tracker, cfg.track_head.embed_channels)
-    ps = init_tracker_state(pcfg.tracker, pcfg.track_head.embed_channels)
+    ps = init_tracker_state(pcfg.tracker, pcfg.track_head.embed_channels, "cpu")
     rtol, atol = (1e-4, 2e-3) if fusion == "f32" else (2.0 ** -7, 2e-3)
     tracked = 0
     for t, img in enumerate(_frames()):
@@ -113,7 +113,7 @@ def test_clip_video_step_matches_jax(models):
     out_j, js = step(variables, jnp.asarray(imgs),
                      jax_init_state(cfg.tracker, cfg.track_head.embed_channels), jnp.int32(1))
     out_p, ps = pipeline.make_clip_step(port, pcfg, (H, W))(
-        torch.from_numpy(imgs), init_tracker_state(pcfg.tracker, pcfg.track_head.embed_channels), 1)
+        torch.from_numpy(imgs), init_tracker_state(pcfg.tracker, pcfg.track_head.embed_channels, "cpu"), 1)
     same = _agree("semantic", out_j.semantic, out_p.semantic)
     same &= _agree("track_map", out_j.track_map, out_p.track_map)
     same &= _agree("panoptic", out_j.panoptic, out_p.panoptic)
@@ -167,7 +167,7 @@ def test_tracker_step_matches_jax_with_ties():
     base = rng.rand(d, 2) * 200
     emb_base = rng.randn(d, e).astype(np.float32)
     js = jax_init_state(tc, e)
-    ps = init_tracker_state(pc, e)
+    ps = init_tracker_state(pc, e, "cpu")
     for f in range(4):
         xy = base + rng.randn(d, 2)
         boxes = np.concatenate([xy, xy + 30, np.round(rng.rand(d, 1) * 4) / 4 * 0.8 + 0.1],

@@ -13,14 +13,17 @@ import torch
 
 from polyphonicformer_tpu.configs import get_preset
 from polyphonicformer_tpu.models import PolyphonicFormer as JaxModel
+from polyphonicformer_tpu.tools import convert_torch_ckpt as jax_ckpt
 from polyphonicformer_tpu.tools.convert_torch_ckpt import (
     build_param_mapping,
     convert_state_dict,
     flatten_tree,
 )
+from polyphonicformer_torch import weights
 from polyphonicformer_torch.configs import model_preset
 from polyphonicformer_torch.models import PolyphonicFormer, build_model
-from polyphonicformer_torch.weights import from_jax_variables, to_numpy_state_dict
+from polyphonicformer_torch.weights import (from_jax_variables, to_jax_variables,
+                                            to_numpy_state_dict)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -76,15 +79,48 @@ def test_track_fc0_is_the_c_major_flatten(jax_tree):
                                   kernel[(y * 7 + x) * c + ch])
 
 
+@pytest.mark.parametrize("preset", ["video_r50_1x", "image_r50_2x", "debug_tiny_video"])
+def test_mapping_copy_equals_the_jax_tool(preset):
+    """The port's copy of the key mapping is the JAX tool's, entry for entry."""
+    cfg = get_preset(preset).model
+    args = (cfg.num_stages, cfg.backbone, cfg.with_track, cfg.num_cls_fcs, cfg.num_mask_fcs)
+    assert weights.build_param_mapping(*args) == jax_ckpt.build_param_mapping(*args)
+
+
+@pytest.mark.parametrize("kind", ["copy", "conv", "linear", "squeeze11", "linear_chw2hwc_7"])
+def test_transforms_equal_the_jax_tool(kind):
+    rng = np.random.RandomState(1)
+    shape = {"copy": (5,), "conv": (4, 3, 3, 2), "linear": (6, 5), "squeeze11": (7, 3, 1, 1),
+             "linear_chw2hwc_7": (6, 3 * 49)}[kind]
+    torch_side = rng.randn(*shape).astype(np.float32)
+    jax_side = jax_ckpt._transform(torch_side, kind)
+    np.testing.assert_array_equal(weights._transform(torch_side, kind), jax_side)
+    np.testing.assert_array_equal(weights._inverse_transform(jax_side, kind),
+                                  jax_ckpt._inverse_transform(jax_side, kind))
+
+
+def test_to_jax_variables_equals_convert_state_dict(jax_tree):
+    _, pcfg, tree = jax_tree
+    sd = {k: v.numpy() for k, v in from_jax_variables(tree, pcfg).items()}
+    got, want = to_jax_variables(sd, pcfg), convert_state_dict(sd, get_preset("debug_tiny_video").model)
+    for coll in ("params", "batch_stats"):
+        g, w = weights.flatten_tree(got[coll]), flatten_tree(want[coll])
+        assert set(g) == set(w)
+        for path in w:
+            np.testing.assert_array_equal(g[path], w[path], err_msg=path)
+    assert weights.unflatten_tree(weights.flatten_tree(tree["params"])).keys() == tree["params"].keys()
+
+
 def test_import_leaves_jax_out():
-    """The serving path imports neither JAX nor the JAX package (the machine
-    with the card has no JAX); the weight bridge takes only the JAX-free key
-    mapping of ``tools/convert_torch_ckpt.py``."""
-    code = ("import sys, polyphonicformer_torch.infer.pipeline, polyphonicformer_torch.configs; "
-            "bad = [m for m in sys.modules if m.startswith(('jax', 'flax', 'polyphonicformer_tpu'))]; "
-            "import polyphonicformer_torch.weights; "
-            "bad += [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax'))]; "
-            "print(bad); sys.exit(1 if bad else 0)")
+    """Every module of the port, and ``chip_smoke``, import neither JAX
+    (nor flax or optax) nor anything of the JAX package: the machine with
+    the card has no JAX."""
+    code = ("import importlib, pkgutil, sys, polyphonicformer_torch as p; "
+            "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]; "
+            "[importlib.import_module(m) for m in mods]; import chip_smoke; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'optax', 'polyphonicformer_tpu')]; "
+            "print(len(mods), bad); sys.exit(1 if bad or len(mods) < 40 else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
