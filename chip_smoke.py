@@ -12,9 +12,13 @@ video serving path (``video_r50_1x``, seeded random weights) on an 8-frame
 1024x2048 clip in bf16 through ``clip_video_step``; (5) the image-model
 train step (``image_r50_2x``, seeded random weights) at 1024x2048, batch 1,
 f32, through ``create_train_state`` and ``make_train_step`` for 3 steps,
-then a debug-size step on the card against the same step on the CPU.
-Phases 4 and 5 each count the kernel launches of their own run.  Any
-failed phase raises, so the exit code is not 0.  The last lines are the
+then a debug-size step on the card against the same step on the CPU; (6)
+the Swin-L video serving path (``video_swinl``, seeded random weights, bf16)
+on an 8-frame 1024x2048 clip through ``make_clip_step``, then 3 steps of
+``make_batched_video_step`` over 2 clips, then a debug-size ``swin_tiny``
+forward on the card against the same forward on the CPU.  Phases 4, 5 and 6
+each count the kernel launches of their own run.  Any failed phase raises,
+so the exit code is not 0.  The last lines are the
 card, a JSON object of per-kernel results and the JSON result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -191,6 +195,94 @@ def check_kernels(dev, gen) -> list[dict]:
     return rows
 
 
+def check_swin_kernels(dev, gen) -> list[dict]:
+    """Phase 3, Swin-L shapes of one 1024x2048 bf16 frame: K8 at stage 0
+    (259x518 padded, 2,738 windows, 6 heads, C 192) with the shift mask and
+    without, K7 at stage 2 (70x133, 190 windows, 24 heads, C 768) with the
+    mask.  Tolerance: within one bf16 spacing (ulp) of the output
+    everywhere, as one flipped output rounding; K7's rounding of P to bf16
+    leaves no more room (without it, outputs move by up to hundreds of
+    ulps).  Library:
+    ``F.scaled_dot_product_attention`` with ``attn_mask = bias + mask`` on
+    the partitioned (windows, heads, 49, 32) tensors (the partition and the
+    mask sum are outside the timed call)."""
+    import torch
+    from torch.nn import functional as F
+
+    from polyphonicformer_torch.models.swin import _shift_attn_mask, window_partition
+    from polyphonicformer_torch.ops.cuda import window_attn
+
+    ws, l = 7, 49
+
+    def inputs(hp, wp, c, heads):
+        qkv = torch.randn((1, hp, wp, 3 * c), generator=gen, device=dev).to(torch.bfloat16)
+        bias = torch.randn((heads, l, l), generator=gen, device=dev) * 0.5
+        mask = torch.from_numpy(_shift_attn_mask(hp, wp, ws, 3)).to(dev)
+        return qkv, bias, mask
+
+    def checked(name, got, want):
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        _, e = torch.frexp(torch.maximum(got.float().abs(), want.float().abs()))
+        ulp = torch.ldexp(torch.ones_like(diff), e - 8)  # bf16 spacing at the output
+        _check(name, got.shape == want.shape and got.dtype == want.dtype
+               and bool((diff <= ulp).all()), f"max err {float(diff.max())}")
+        return float(diff.max())
+
+    def sdpa_args(win, c, heads, bias, mask):
+        """q, k, v (nw, heads, 49, hd) and the additive mask, bf16."""
+        nw = win.shape[0]
+        q, k, v = (win[..., i * c:(i + 1) * c].reshape(nw, l, heads, c // heads)
+                   .transpose(1, 2).contiguous() for i in range(3))
+        am = bias[None] if mask is None else bias[None] + mask[:, None]
+        return q, k, v, am.to(torch.bfloat16).expand(nw, -1, -1, -1).contiguous()
+
+    def flops(nw, heads, hd):
+        return 4.0 * nw * heads * l * l * hd  # QK^T and PV, 2 operations a multiply-add
+
+    rows = []
+    # K8 at stage 0
+    c, heads = 192, 6
+    qkv, bias, mask = inputs(259, 518, c, heads)
+    err, timed = 0.0, {}
+    for tag, m in (("", mask), ("_no_mask", None)):
+        got = window_attn.window_attention(qkv, bias, m, heads, ws)
+        want = window_attn.window_attention_plain(qkv, bias, m, heads, ws)
+        err = max(err, checked(f"window_attention{tag}", got, want))
+        del want
+        args = sdpa_args(window_partition(qkv, ws), c, heads, bias, m)
+        timed[f"ms{tag}"] = _time_ms(lambda: window_attn.window_attention(qkv, bias, m, heads, ws))
+        timed[f"plain_ms{tag}"] = _time_ms(
+            lambda: window_attn.window_attention_plain(qkv, bias, m, heads, ws), reps=5)
+        timed[f"library_ms{tag}"] = _time_ms(lambda: F.scaled_dot_product_attention(*args[:3],
+                                                                                   attn_mask=args[3]))
+        del args
+    nw = got.shape[1] * got.shape[2] // l
+    rows.append(dict(
+        name="window_attention", route="cuda", source="polyphonicformer_torch/csrc/window_attn.cu",
+        replaces="polyphonicformer_tpu/ops/pallas/window_attn.py:84", max_abs_err=err, **timed,
+        **_bound(_nbytes(qkv, bias, mask, got), flops(nw, heads, c // heads), "bf16"),
+        shape=f"qkv {tuple(qkv.shape)} bf16, mask {tuple(mask.shape)} f32"))
+
+    # K7 at stage 2
+    c, heads = 768, 24
+    qkv_img, bias, mask = inputs(70, 133, c, heads)
+    qkv = window_partition(qkv_img, ws).contiguous()
+    got = window_attn.window_attn_math(qkv, bias, mask, heads)
+    want = window_attn.window_attn_math_plain(qkv, bias, mask, heads)
+    err = checked("window_attn_math", got, want)
+    args = sdpa_args(qkv, c, heads, bias, mask)
+    rows.append(dict(
+        name="window_attn_math", route="cuda", source="polyphonicformer_torch/csrc/window_attn.cu",
+        replaces="polyphonicformer_tpu/ops/pallas/win_attn_math.py:78", max_abs_err=err,
+        ms=_time_ms(lambda: window_attn.window_attn_math(qkv, bias, mask, heads)),
+        plain_ms=_time_ms(lambda: window_attn.window_attn_math_plain(qkv, bias, mask, heads)),
+        library_ms=_time_ms(lambda: F.scaled_dot_product_attention(*args[:3], attn_mask=args[3])),
+        **_bound(_nbytes(qkv, bias, mask, got), flops(qkv.shape[0], heads, c // heads), "bf16"),
+        shape=f"qkv {tuple(qkv.shape)} bf16, mask {tuple(mask.shape)} f32"))
+    return rows
+
+
 def check_train_kernels(dev, gen) -> list[dict]:
     """Phase 3, training shapes: K2b, K5, K6 and K6b against their plain
     versions at the shapes of the image-model train step at 1024x2048."""
@@ -311,7 +403,7 @@ def main() -> int:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    rows = check_kernels(dev, gen) + check_train_kernels(dev, gen)
+    rows = check_kernels(dev, gen) + check_train_kernels(dev, gen) + check_swin_kernels(dev, gen)
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"[3 kernel] {r['name']}: max_abs_err {r['max_abs_err']} | kernel {r['ms']:.4f} ms "
@@ -322,10 +414,13 @@ def main() -> int:
     print(f"[4 slice] {json.dumps(slice_info)}", flush=True)
     train_launches, train_info = run_train(dev)
     print(f"[5 train] {json.dumps(train_info)}", flush=True)
+    swin_launches, swin_info = run_swin(dev)
+    print(f"[6 swin] {json.dumps(swin_info)}", flush=True)
     for r in rows:
         by_path = {"serve": serve_launches.get(r["name"], 0),
-                   "train": train_launches.get(r["name"], 0)}
-        r["launches"] = by_path["serve"] + by_path["train"]
+                   "train": train_launches.get(r["name"], 0),
+                   "swin": swin_launches.get(r["name"], 0)}
+        r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         _check(f"launches {r['name']}", r["launches"] > 0, "never launched on a main path")
 
@@ -338,6 +433,16 @@ def main() -> int:
 
 
 PER_FRAME = {"mask_pool": 7, "upsample2": 4, "phase_fusion": 1, "map_render": 1}
+# Swin-L: K8 in the 4 blocks of stages 0-1 (6 and 12 heads), K7 in the 20
+# of stages 2-3 (24 and 48 heads)
+SWIN_PER_FRAME = {**PER_FRAME, "window_attention": 4, "window_attn_math": 20}
+
+
+def swin_per_batched_step(b: int) -> dict:
+    """Launches of one batched step over b clips: one network forward (its
+    K1, K7, K8 and three x2 upsamples once), then per clip the x4 dense
+    depth (K2), fusion (K3) and rendering (K4)."""
+    return {**SWIN_PER_FRAME, "upsample2": 3 + b, "phase_fusion": b, "map_render": b}
 # per train step: K1 once in the rpn head and twice per stage; one x2
 # upsample each of the stacked masks, the semantic logits, the dense depth
 # and the stacked stage depths, forward and backward; one batched solve; the
@@ -348,12 +453,43 @@ PER_STEP = {"mask_pool": 7, "upsample2": 4, "upsample2_bwd": 4, "lsa": 1, "mask_
 
 def _kernels():
     from polyphonicformer_torch.ops.cuda import (lsa, map_render, mask_loss, mask_pool,
-                                                 phase_fusion, upsample2)
+                                                 phase_fusion, upsample2, window_attn)
 
     return {"mask_pool": mask_pool.KERNEL, "upsample2": upsample2.KERNEL,
             "upsample2_bwd": upsample2.KERNEL_BWD, "phase_fusion": phase_fusion.KERNEL,
             "map_render": map_render.KERNEL, "lsa": lsa.KERNEL, "mask_loss": mask_loss.KERNEL,
-            "mask_loss_bwd": mask_loss.KERNEL_BWD}
+            "mask_loss_bwd": mask_loss.KERNEL_BWD,
+            "window_attn_math": window_attn.KERNEL_MATH,
+            "window_attention": window_attn.KERNEL_IMAGE}
+
+
+def _count_launches(kernels, per: dict, times: int, tag: str) -> dict:
+    launches = {name: k.launches for name, k in kernels.items()}
+    for name, n in launches.items():
+        _check(f"{tag} launches {name}", n == per.get(name, 0) * times,
+               f"{n} launches, expected {per.get(name, 0)} x {times}")
+    return launches
+
+
+def _check_maps(tag: str, out, cfg, shape) -> None:
+    """Map shapes and types, classes in range, finite depth in [0, 80] m,
+    track ids only on thing pixels."""
+    import torch
+
+    nc, nt = cfg.num_classes, cfg.num_thing_classes
+    for field, dtype in (("semantic", torch.int32), ("panoptic", torch.int32),
+                         ("track_map", torch.int32), ("depth", torch.float32)):
+        v = getattr(out, field)
+        _check(f"{tag} {field}", v.shape == shape and v.dtype == dtype,
+               f"{tuple(v.shape)} {v.dtype}")
+    _check(f"{tag} semantic range", int(out.semantic.min()) >= 0
+           and int(out.semantic.max()) <= nc,
+           f"[{int(out.semantic.min())}, {int(out.semantic.max())}]")
+    _check(f"{tag} depth", bool(torch.isfinite(out.depth).all()) and float(out.depth.min()) >= 0
+           and float(out.depth.max()) <= 80.0,
+           f"[{float(out.depth.min())}, {float(out.depth.max())}]")
+    _check(f"{tag} track ids on things", not bool((out.track_map[out.semantic >= nt] != 0).any()),
+           "track id on a stuff or void pixel")
 
 
 def _frames(gen, t, h, w, block, dev):
@@ -400,25 +536,17 @@ def check_small_reference(dev) -> dict:
     return agree
 
 
-def run_slice(dev):
-    """Phase 4: the R50 video serving path at full width, bf16."""
+def _serve_clip(tag: str, model, cfg, frames, per_frame: dict, dev):
+    """An 8-frame clip through ``make_clip_step`` (bf16), counted and
+    checked; then a warm pass of the clip and the same frames one by one
+    through ``make_video_step``, each frame timed with CUDA events."""
     import torch
 
-    from polyphonicformer_torch.configs import model_preset
-    from polyphonicformer_torch.infer.pipeline import (make_clip_step, make_image_step,
-                                                       make_video_step)
+    from polyphonicformer_torch.infer.pipeline import make_clip_step, make_video_step
     from polyphonicformer_torch.infer.tracker import init_tracker_state
-    from polyphonicformer_torch.models import build_model
 
     kernels = _kernels()
-    cfg = model_preset("video_r50_1x")
-    h, w, t = 1024, 2048, 8
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    model = build_model(cfg, dev, generator=gen)
-    with torch.no_grad():  # thing scores straddle instance_score_thr
-        model.roi_head.mask_head[-1].fc_cls.bias.zero_()
-    frames = _frames(gen, t, h, w, 64, dev)
+    t, h, w = frames.shape[:3]
     bf16 = torch.bfloat16
     step = make_clip_step(model, cfg, (h, w), compute_dtype=bf16, fusion_dtype=bf16)
     state0 = init_tracker_state(cfg.tracker, cfg.track_head.embed_channels, dev)
@@ -431,29 +559,13 @@ def run_slice(dev):
     out, state = step(frames, state0, 1)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {name: k.launches for name, k in kernels.items()}
-    for name, n in launches.items():
-        per = PER_FRAME.get(name, 0)
-        _check(f"launches {name}", n == per * t,
-               f"{n} launches, expected {per} x {t} frames")
-
-    nc, nt = cfg.num_classes, cfg.num_thing_classes
-    for field, dtype in (("semantic", torch.int32), ("panoptic", torch.int32),
-                         ("track_map", torch.int32), ("depth", torch.float32)):
-        v = getattr(out, field)
-        _check(field, v.shape == (t, h, w) and v.dtype == dtype, f"{tuple(v.shape)} {v.dtype}")
-    _check("semantic range", int(out.semantic.min()) >= 0 and int(out.semantic.max()) <= nc,
-           f"[{int(out.semantic.min())}, {int(out.semantic.max())}]")
-    _check("depth", bool(torch.isfinite(out.depth).all()) and float(out.depth.min()) >= 0
-           and float(out.depth.max()) <= 80.0, f"[{float(out.depth.min())}, {float(out.depth.max())}]")
-    _check("track ids on things", not bool((out.track_map[out.semantic >= nt] != 0).any()),
-           "track id on a stuff or void pixel")
+    launches = _count_launches(kernels, per_frame, t, tag)
+    _check_maps(tag, out, cfg, (t, h, w))
     # new tracklets come only from valid detections that reached tracker_step
-    _check("detections", int(state.num_tracklets) > 0 and bool((out.track_map > 0).any()),
+    _check(f"{tag} detections", int(state.num_tracklets) > 0 and bool((out.track_map > 0).any()),
            "no detection reached the tracker")
     peak = torch.cuda.max_memory_allocated()
 
-    # second, warm pass: the clip step as a whole, then frame by frame
     t0 = time.perf_counter()
     step(frames, state0, 1)
     torch.cuda.synchronize()
@@ -470,20 +582,128 @@ def run_slice(dev):
         frame_ms.append(a.elapsed_time(b))
     frame_ms.sort()
     median = frame_ms[len(frame_ms) // 2]
-
-    # image mode, a prefix of the same code
-    pano = make_image_step(model, cfg, (h, w), compute_dtype=bf16, fusion_dtype=bf16)(frames[:1])
-    _check("image step", pano.semantic.shape == (h, w) and int(pano.semantic.max()) <= nc
-           and bool(torch.isfinite(pano.depth).all()), "image-mode maps")
-    info = {
-        "preset": "video_r50_1x", "hw": [h, w], "frames": t, "dtype": "bfloat16",
+    return launches, {
+        "preset": cfg.backbone, "hw": [h, w], "frames": t, "dtype": "bfloat16",
         "first_pass_s": first_s, "warm_clip_s": clip_s, "warm_clip_fps": t / clip_s,
-        "median_frame_ms": median, "median_fps": 1000.0 / median,
+        "median_frame_ms": median, "median_fps": 1000.0 / median, "frame_ms": frame_ms,
         "peak_mem_gib": peak / 2 ** 30, "num_tracklets": int(state.num_tracklets),
         "frames_with_tracks": int((out.track_map > 0).flatten(1).any(1).sum()),
-        "launches": launches, "small_reference_agree": check_small_reference(dev),
-    }
+        "launches": launches}
+
+
+def _serving_model(preset: str, dev):
+    """The preset's model on the card, weights drawn from seed 0."""
+    import torch
+
+    from polyphonicformer_torch.configs import model_preset
+    from polyphonicformer_torch.models import build_model
+
+    cfg = model_preset(preset)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model = build_model(cfg, dev, generator=gen)
+    with torch.no_grad():  # thing scores straddle instance_score_thr
+        model.roi_head.mask_head[-1].fc_cls.bias.zero_()
+    return cfg, model, gen
+
+
+def run_slice(dev):
+    """Phase 4: the R50 video serving path at full width, bf16."""
+    import torch
+
+    from polyphonicformer_torch.infer.pipeline import make_image_step
+
+    cfg, model, gen = _serving_model("video_r50_1x", dev)
+    h, w = 1024, 2048
+    frames = _frames(gen, 8, h, w, 64, dev)
+    launches, info = _serve_clip("r50 clip", model, cfg, frames, PER_FRAME, dev)
+    info["preset"] = "video_r50_1x"
+
+    # image mode, a prefix of the same code
+    bf16 = torch.bfloat16
+    pano = make_image_step(model, cfg, (h, w), compute_dtype=bf16, fusion_dtype=bf16)(frames[:1])
+    _check("image step", pano.semantic.shape == (h, w)
+           and int(pano.semantic.max()) <= cfg.num_classes
+           and bool(torch.isfinite(pano.depth).all()), "image-mode maps")
+    info["small_reference_agree"] = check_small_reference(dev)
     return launches, info
+
+
+def check_swin_small_reference(dev) -> dict:
+    """A debug-width swin_tiny model at 64x128, f32: the forward on the card
+    (K7, K8) against the same forward on the CPU (their plain versions),
+    same weights and image.  Each output within 1e-4 x max |cpu| (f32 sums
+    in another order)."""
+    import torch
+
+    from polyphonicformer_torch.configs import model_preset
+    from polyphonicformer_torch.models import build_model
+
+    cfg = model_preset("debug_tiny_video", backbone="swin_tiny")
+    cpu = build_model(cfg, "cpu", generator=torch.Generator().manual_seed(0))
+    gpu = build_model(cfg, dev, state_dict=cpu.state_dict())
+    img = torch.randn((1, 64, 128, 3), generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        outs = {name: (m.extract_feat(x), m(x)) for name, m, x in
+                (("cpu", cpu, img), ("gpu", gpu, img.to(dev)))}
+    (fc, oc), (fg, og) = outs["cpu"], outs["gpu"]
+    pairs = [(f"P{i + 2}", a, b) for i, (a, b) in enumerate(zip(fc, fg))]
+    pairs += [(f, getattr(oc.stages[-1], f), getattr(og.stages[-1], f))
+              for f in ("cls_score", "mask_preds", "depth_preds")]
+    worst = {}
+    for name, a, b in pairs:
+        rel = float((a - b.cpu()).abs().max()) / float(a.abs().max())
+        worst[name] = rel
+        _check(f"swin small reference {name}", rel <= 1e-4, f"max err {rel} of max |cpu|")
+    return worst
+
+
+def run_swin(dev):
+    """Phase 6: the Swin-L video serving path at full width, bf16: an 8-frame
+    clip, then the batched step over 2 clips for 3 frames."""
+    import torch
+
+    from polyphonicformer_torch.infer.pipeline import (init_batched_tracker_states,
+                                                       make_batched_video_step)
+
+    cfg, model, gen = _serving_model("video_swinl", dev)
+    _check("video_swinl dtype", cfg.compute_dtype == "bfloat16", cfg.compute_dtype)
+    h, w, t, b = 1024, 2048, 8, 2
+    frames = _frames(gen, t, h, w, 64, dev)
+    launches, info = _serve_clip("swin clip", model, cfg, frames, SWIN_PER_FRAME, dev)
+    info["preset"] = "video_swinl"
+
+    # batched: clip 0 is the start of the clip above, clip 1 its next
+    # frames mirrored left to right
+    steps = 3
+    clips = torch.stack([frames[:steps], frames[steps:2 * steps].flip(2)], dim=1)
+    bf16 = torch.bfloat16
+    step = make_batched_video_step(model, cfg, (h, w), compute_dtype=bf16, fusion_dtype=bf16)
+    states = init_batched_tracker_states(cfg, b, dev)
+    kernels = _kernels()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    step_s = []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        out, states = step(clips[i], states, [i + 1, i + 1])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        _check_maps(f"swin batched step {i}", out, cfg, (b, h, w))
+    per_step = swin_per_batched_step(b)
+    batched = _count_launches(kernels, per_step, steps, "swin batched")
+    _check("swin batched detections", int(states.num_tracklets.sum()) > 0,
+           "no detection reached a tracker")
+    warm_ms = [s * 1e3 for s in step_s[1:]]
+    info["batched"] = {
+        "clips": b, "steps": steps, "first_step_s": step_s[0], "warm_steps_ms": warm_ms,
+        "warm_frames_per_s": b * len(warm_ms) / sum(step_s[1:]),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "num_tracklets": states.num_tracklets.tolist(), "launches_per_step": per_step}
+    info["small_reference_max_rel_err"] = check_swin_small_reference(dev)
+    return {name: launches[name] + batched[name] for name in launches}, info
 
 
 def check_train_reference(dev) -> dict:
@@ -556,12 +776,8 @@ def run_train(dev):
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         all_metrics.append({k: float(v) for k, v in metrics.items()})
-    launches = {name: k.launches for name, k in kernels.items()}
+    launches = _count_launches(kernels, PER_STEP, steps, "train")
     peak = torch.cuda.max_memory_allocated()
-    for name, n in launches.items():
-        per = PER_STEP.get(name, 0)
-        _check(f"train launches {name}", n == per * steps,
-               f"{n} launches, expected {per} x {steps} steps")
     for i, m in enumerate(all_metrics):
         bad = [k for k, v in m.items() if v != v or abs(v) == float("inf")]
         _check(f"train step {i} losses", not bad, f"non-finite {bad}")

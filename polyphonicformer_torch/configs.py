@@ -5,8 +5,8 @@ reads, under the same names and with the same defaults (the reference's
 ``configs/_base_/models/polyphonic_former.py``,
 ``configs/_base_/schedules/schedule_{1x,2x}.py`` and the leaf configs named
 at each preset), so the port and everything it runs on import nothing of
-the JAX package.  The video-training, loader and Swin fields wait for the
-slices that read them.  ``tests/test_torch_configs.py`` holds each preset
+the JAX package.  The video-training and loader fields wait for the slices
+that read them.  ``tests/test_torch_configs.py`` holds each preset
 field for field against the JAX package's.
 """
 from __future__ import annotations
@@ -167,14 +167,33 @@ def _debug_tiny_video() -> ExperimentConfig:
     return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, with_track=True))
 
 
+# backbone -> (embed dim, blocks per stage, heads per stage); JAX
+# models/polyphonic.py, the Swin branch of PolyphonicFormer.setup
+SWIN_SPECS = {"swin_tiny": (96, (2, 2, 6, 2), (3, 6, 12, 24)),
+              "swin_large": (192, (2, 2, 18, 2), (6, 12, 24, 48))}
+
+
+def _video_r50_1x() -> ExperimentConfig:
+    return ExperimentConfig(
+        model=ModelConfig(with_track=True, rpn_depth_loss=DepthLossConfig(loss_weight=1.0)),
+        data=DataConfig(batch_size=16),
+        schedule=ScheduleConfig(lr=2e-4, total_epochs=12, lr_decay_epochs=(8, 11)))
+
+
+def _video_swinl() -> ExperimentConfig:
+    """The video model on Swin-L, served in bf16 (BASELINE.json config #5)."""
+    cfg = _video_r50_1x()
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, backbone="swin_large", compute_dtype="bfloat16"))
+
+
 PRESETS = {
     # reference configs/polyphonic_image/poly_r50_cityscapes_2x.py
     "image_r50_2x": lambda: ExperimentConfig(),
     # reference configs/polyphonic_video/poly_r50_cityscapes_1x.py
-    "video_r50_1x": lambda: ExperimentConfig(
-        model=ModelConfig(with_track=True, rpn_depth_loss=DepthLossConfig(loss_weight=1.0)),
-        data=DataConfig(batch_size=16),
-        schedule=ScheduleConfig(lr=2e-4, total_epochs=12, lr_decay_epochs=(8, 11))),
+    "video_r50_1x": _video_r50_1x,
+    # the JAX package's video_swinl: video_r50_1x on swin_large, in bf16
+    "video_swinl": _video_swinl,
     "debug_tiny": _debug_tiny,
     "debug_tiny_video": _debug_tiny_video,
 }

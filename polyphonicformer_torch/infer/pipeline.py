@@ -6,11 +6,13 @@ Per frame: network -> x2 upsample of the last stage's mask and depth logits
 fusion's marginals -> RoIAlign track embeddings -> tracker -> the four maps
 (K4).  PyTorch runs eagerly, so ``make_*_step`` bind their arguments and
 ``clip_video_step`` is a Python loop over the frames.  ``batched_video_step``
-is not ported yet.
+serves one frame of each of B clips: one batched network forward, then
+fusion and the tracker per clip.
 """
 from __future__ import annotations
 
 import copy
+import dataclasses
 import functools
 from typing import NamedTuple, Tuple
 
@@ -21,7 +23,7 @@ from ..ops.cuda.map_render import render_maps
 from ..ops.resize import resize_bilinear
 from ..ops.roi_align import boxes_mad_from_marginals
 from .panoptic import PanopticResult, fuse_panoptic
-from .tracker import TrackerState, tracker_step
+from .tracker import TrackerState, init_tracker_state, tracker_step
 
 
 class FrameOutput(NamedTuple):
@@ -73,39 +75,45 @@ def _upsample2(x: torch.Tensor) -> torch.Tensor:
     return resize_bilinear(x, (x.shape[-2] * 2, x.shape[-1] * 2))
 
 
-def _heads(model, image, compute_dtype):
-    """Network forward in ``compute_dtype``; the outputs come back in f32."""
+class _Heads(NamedTuple):
+    """The last stage's outputs for fusion, one row per image, f32."""
+    cls_probs: torch.Tensor  # (B, Q, C) sigmoid probabilities
+    mask_logits: torch.Tensor  # (B, Q, h, w) at stride 4
+    depth_logits: torch.Tensor  # (B, Q, h, w)
+    depth_init: torch.Tensor  # (B, h, w) the rpn's dense depth logits
+
+
+def _heads(model, images, compute_dtype):
+    """Network forward over the batch in ``compute_dtype``; the outputs come
+    back in f32, each x2 upsample one launch for the whole batch."""
     model = cast_model(model, compute_dtype)
-    fpn = model.extract_feat(image.to(compute_dtype))
+    fpn = model.extract_feat(images.to(compute_dtype))
     out = model.forward_heads(fpn)
     last = out.stages[-1]
-    cls_probs = torch.sigmoid(last.cls_score[0].float())
-    mask_logits = _upsample2(last.mask_preds[0].float())
-    depth_logits = _upsample2(last.depth_preds[0].float())
-    depth_init = _upsample2(out.rpn.depth_pred[0:1].float())[0]
-    return model, fpn, cls_probs, mask_logits, depth_logits, depth_init
+    return model, fpn, _Heads(
+        cls_probs=torch.sigmoid(last.cls_score.float()),
+        mask_logits=_upsample2(last.mask_preds.float()),
+        depth_logits=_upsample2(last.depth_preds.float()),
+        depth_init=_upsample2(out.rpn.depth_pred.float()))
 
 
-@torch.no_grad()
-def video_frame_step(model: PolyphonicFormer, cfg, image: torch.Tensor,
-                     tracker_state: TrackerState, frame_id, out_hw: Tuple[int, int],
-                     compute_dtype=torch.float32, fusion_dtype=torch.float32
-                     ) -> Tuple[FrameOutput, TrackerState]:
-    """image: (1, H, W, 3) normalized and padded; out_hw: original size.
-    compute_dtype bfloat16 runs the network in bf16; the tracker runs in
-    f32.  fusion_dtype bfloat16 takes the K3 fusion kernel."""
-    model, fpn, cls_probs, mask_logits, depth_logits, depth_init = _heads(
-        model, image, compute_dtype)
-    dev = cls_probs.device
-    frame_id = frame_id.to(dev, torch.int32) if torch.is_tensor(frame_id) \
-        else torch.full((), frame_id, dtype=torch.int32, device=dev)
-    pano = fuse_panoptic(cfg, cls_probs, mask_logits, depth_logits, depth_init, out_hw,
-                         fusion_dtype=fusion_dtype, emit_marginals=True, defer_maps=True)
+def _fuse(cfg, heads: _Heads, b: int, out_hw, fusion_dtype, **kw) -> PanopticResult:
+    return fuse_panoptic(cfg, heads.cls_probs[b], heads.mask_logits[b], heads.depth_logits[b],
+                         heads.depth_init[b], out_hw, fusion_dtype=fusion_dtype, **kw)
 
-    # tracking over kept thing segments, from the fusion's marginals
+
+class _Detections(NamedTuple):
+    """The tracker's D candidate rows, from the fusion's marginals."""
+    thing_keep: torch.Tensor  # (K,) kept thing segments
+    valid: torch.Tensor  # (D,)
+    labels: torch.Tensor  # (D,)
+    boxes: torch.Tensor  # (D, 5) tight (y1, x1, y2, x2) and the score
+    roi_boxes: torch.Tensor  # (D, 4) MAD boxes for the track head
+
+
+def _detections(cfg, pano: PanopticResult) -> _Detections:
     d = cfg.tracker.max_detections
-    kk = pano.instance_ids.shape[0]
-    take = min(d, kk)
+    take = min(d, pano.instance_ids.shape[0])
 
     def to_d(arr):
         out = arr.new_zeros((d,) + arr.shape[1:])
@@ -114,21 +122,35 @@ def video_frame_step(model: PolyphonicFormer, cfg, image: torch.Tensor,
 
     thing_keep = pano.keep & pano.is_thing
     det_valid = to_d(thing_keep)
-    det_scores = to_d(pano.scores)
-    det_labels = to_d(pano.labels)
     det_rowm = to_d(pano.row_marg) * det_valid[:, None]
     det_colm = to_d(pano.col_marg) * det_valid[:, None]
     boxes_yx = _tight_boxes_from_any(det_rowm > 0, det_colm > 0)
-    det_boxes = torch.cat([boxes_yx.clamp(min=0.0), det_scores[:, None]], dim=1)
-    roi_boxes = boxes_mad_from_marginals(det_rowm, det_colm)
-    embeds = model.forward_track_embeds(fpn, roi_boxes[None], det_valid[None])[0].float()
+    return _Detections(
+        thing_keep=thing_keep, valid=det_valid, labels=to_d(pano.labels),
+        boxes=torch.cat([boxes_yx.clamp(min=0.0), to_d(pano.scores)[:, None]], dim=1),
+        roi_boxes=boxes_mad_from_marginals(det_rowm, det_colm))
 
+
+def _frame_id(frame_id, dev) -> torch.Tensor:
+    return frame_id.to(dev, torch.int32) if torch.is_tensor(frame_id) \
+        else torch.full((), frame_id, dtype=torch.int32, device=dev)
+
+
+def _track_and_render(cfg, pano: PanopticResult, det: _Detections, embeds: torch.Tensor,
+                      tracker_state: TrackerState, frame_id: torch.Tensor
+                      ) -> Tuple[FrameOutput, TrackerState]:
+    """One clip's tracker step on its detections, then the four maps (K4)."""
+    dev = embeds.device
+    d = cfg.tracker.max_detections
+    kk = pano.instance_ids.shape[0]
+    take = min(d, kk)
     new_state, ids_sorted, order, kept_sorted = tracker_step(
-        cfg.tracker, tracker_state, det_boxes, det_labels, embeds, det_valid, frame_id)
+        cfg.tracker, tracker_state, det.boxes, det.labels, embeds, det.valid, frame_id)
     # sorted ids back to candidate order; reference: ids + 1, -1 / -2 -> 0
     ids_by_det = torch.zeros((d,), dtype=torch.int32, device=dev)
     ids_by_det[order] = torch.where(kept_sorted & (ids_sorted >= 0), ids_sorted + 1,
                                     torch.zeros_like(ids_sorted))
+    thing_keep = det.thing_keep
     overflow = (thing_keep.sum() - thing_keep[:take].sum()).to(torch.int32)
     cand_track_id = torch.zeros((kk,), dtype=torch.int32, device=dev)
     cand_track_id[:take] = ids_by_det[:take]
@@ -144,10 +166,90 @@ def video_frame_step(model: PolyphonicFormer, cfg, image: torch.Tensor,
                        track_overflow=overflow), new_state
 
 
+@torch.no_grad()
+def video_frame_step(model: PolyphonicFormer, cfg, image: torch.Tensor,
+                     tracker_state: TrackerState, frame_id, out_hw: Tuple[int, int],
+                     compute_dtype=torch.float32, fusion_dtype=torch.float32
+                     ) -> Tuple[FrameOutput, TrackerState]:
+    """image: (1, H, W, 3) normalized and padded; out_hw: original size.
+    compute_dtype bfloat16 runs the network in bf16; the tracker runs in
+    f32.  fusion_dtype bfloat16 takes the K3 fusion kernel."""
+    model, fpn, heads = _heads(model, image, compute_dtype)
+    pano = _fuse(cfg, heads, 0, out_hw, fusion_dtype, emit_marginals=True, defer_maps=True)
+    det = _detections(cfg, pano)
+    embeds = model.forward_track_embeds(fpn, det.roi_boxes[None], det.valid[None])[0].float()
+    return _track_and_render(cfg, pano, det, embeds, tracker_state,
+                             _frame_id(frame_id, embeds.device))
+
+
 def make_video_step(model: PolyphonicFormer, cfg, out_hw, compute_dtype=torch.float32,
                     fusion_dtype=torch.float32):
     """step(image, tracker_state, frame_id) -> (FrameOutput, TrackerState)."""
     return functools.partial(video_frame_step, cast_model(model, compute_dtype), cfg,
+                             out_hw=tuple(out_hw), compute_dtype=compute_dtype,
+                             fusion_dtype=fusion_dtype)
+
+
+def _stack(items):
+    """Per-clip results -> one result with a leading clip axis; a field that
+    is None or a static int is the same for every clip and kept as it is."""
+    first = items[0]
+    if torch.is_tensor(first):
+        return torch.stack(items)
+    if isinstance(first, TrackerState):
+        return TrackerState(**{f.name: torch.stack([getattr(s, f.name) for s in items])
+                               for f in dataclasses.fields(TrackerState)})
+    if isinstance(first, tuple):  # a NamedTuple of results
+        return type(first)(*(_stack(list(field)) for field in zip(*items)))
+    return first
+
+
+def _clip_state(states: TrackerState, b: int) -> TrackerState:
+    """Clip ``b``'s tracker state: views into the batched state."""
+    return TrackerState(**{f.name: getattr(states, f.name)[b]
+                           for f in dataclasses.fields(TrackerState)})
+
+
+def init_batched_tracker_states(cfg, batch: int, device="cuda") -> TrackerState:
+    """``batch`` fresh tracker states, each field with a leading clip axis."""
+    one = init_tracker_state(cfg.tracker, cfg.track_head.embed_channels, device)
+    return _stack([one] * batch)
+
+
+@torch.no_grad()
+def batched_video_step(model: PolyphonicFormer, cfg, images: torch.Tensor,
+                       tracker_states: TrackerState, frame_ids, out_hw: Tuple[int, int],
+                       compute_dtype=torch.float32, fusion_dtype=torch.float32
+                       ) -> Tuple[FrameOutput, TrackerState]:
+    """Multi-clip serving (BASELINE.json config #5): B frames of B
+    independent sequences, one per clip.  images (B, H, W, 3);
+    tracker_states from :func:`init_batched_tracker_states` or the last
+    call; frame_ids (B,) ints or an int tensor.
+
+    One batched network forward; fusion, boxes and the tracker per clip
+    (JAX ``vmap``s them), with each clip's tracker state its own; one
+    batched track-head forward.  Returns the FrameOutput and TrackerState
+    with a leading clip axis."""
+    model, fpn, heads = _heads(model, images, compute_dtype)
+    batch = images.shape[0]
+    panos = [_fuse(cfg, heads, b, out_hw, fusion_dtype, emit_marginals=True, defer_maps=True)
+             for b in range(batch)]
+    dets = [_detections(cfg, pano) for pano in panos]
+    embeds = model.forward_track_embeds(fpn, torch.stack([d.roi_boxes for d in dets]),
+                                        torch.stack([d.valid for d in dets])).float()
+    dev = embeds.device
+    outs, states = zip(*(
+        _track_and_render(cfg, panos[b], dets[b], embeds[b], _clip_state(tracker_states, b),
+                          _frame_id(frame_ids[b], dev))
+        for b in range(batch)))
+    return _stack(list(outs)), _stack(list(states))
+
+
+def make_batched_video_step(model: PolyphonicFormer, cfg, out_hw, compute_dtype=torch.float32,
+                            fusion_dtype=torch.float32):
+    """step(images, tracker_states, frame_ids) -> (FrameOutput, TrackerState),
+    batched over clips."""
+    return functools.partial(batched_video_step, cast_model(model, compute_dtype), cfg,
                              out_hw=tuple(out_hw), compute_dtype=compute_dtype,
                              fusion_dtype=fusion_dtype)
 
@@ -191,10 +293,7 @@ def make_image_step(model: PolyphonicFormer, cfg, out_hw, compute_dtype=torch.fl
 
     @torch.no_grad()
     def step(image: torch.Tensor) -> PanopticResult:
-        _, _, cls_probs, mask_logits, depth_logits, depth_init = _heads(
-            model, image, compute_dtype)
-        return fuse_panoptic(cfg, cls_probs, mask_logits, depth_logits, depth_init,
-                             tuple(out_hw), fusion_dtype=fusion_dtype,
-                             emit_marginals=kernel_path)
+        _, _, heads = _heads(model, image, compute_dtype)
+        return _fuse(cfg, heads, 0, tuple(out_hw), fusion_dtype, emit_marginals=kernel_path)
 
     return step

@@ -53,7 +53,8 @@ class KernelHead(nn.Module):
         b = loc_feats.shape[0]
 
         init_kernels = self.init_kernels.weight[:, :, 0, 0]  # (N, C)
-        mask_preds_things = torch.einsum("bchw,nc->bnhw", loc_feats, init_kernels)
+        # contiguous for K1: at batch > 1 the einsum returns a permuted view
+        mask_preds_things = torch.einsum("bchw,nc->bnhw", loc_feats, init_kernels).contiguous()
         conv_seg_w = self.conv_seg.weight[:, :, 0, 0]
         seg_preds = torch.einsum("bchw,nc->bnhw", semantic_feats, conv_seg_w) \
             + self.conv_seg.bias[:, None, None]

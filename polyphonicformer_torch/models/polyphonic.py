@@ -15,10 +15,12 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..configs import SWIN_SPECS
 from .fpn import FPN
 from .kernel_head import KernelHead, RPNOutput
 from .kernel_update_head import KernelUpdateHead, StageOutput
 from .resnet import ResNet
+from .swin import SwinTransformer
 from .track_head import TrackHead
 
 
@@ -38,15 +40,18 @@ class _RoIHead(nn.Module):
 
 class PolyphonicFormer(nn.Module):
     def __init__(self, cfg):
-        """cfg: a ``configs.ModelConfig`` (ResNet backbones only)."""
+        """cfg: a ``configs.ModelConfig`` (ResNet or Swin backbones)."""
         super().__init__()
-        if not cfg.backbone.startswith("resnet"):
+        if cfg.backbone.startswith("resnet"):
+            self.backbone = ResNet(cfg.backbone)
+            self.backbone.freeze(cfg.frozen_stages)
+        elif cfg.backbone in SWIN_SPECS:  # no Swin stage is frozen (JAX is_frozen)
+            self.backbone = SwinTransformer(*SWIN_SPECS[cfg.backbone])
+        else:
             raise NotImplementedError(f"backbone {cfg.backbone!r} is not ported yet")
-        self.backbone = ResNet(cfg.backbone)
-        self.backbone.freeze(cfg.frozen_stages)
         # JAX nn.remat: the backward recomputes the backbone's activations
         self.remat_backbone = cfg.remat_backbone
-        self.neck = FPN((256, 512, 1024, 2048), cfg.fpn_out_channels)
+        self.neck = FPN(self.backbone.out_channels, cfg.fpn_out_channels)
         self.rpn_head = KernelHead(
             cfg.fpn_out_channels, cfg.out_channels, cfg.num_proposals,
             cfg.num_thing_classes, cfg.num_stuff_classes, cfg.sem_fpn_gn_groups,
@@ -92,7 +97,8 @@ class PolyphonicFormer(nn.Module):
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Draw every parameter from ``generator``: lecun-normal weights, unit
     norm scales, zero biases and BN statistics of an identity, the query
-    kernels at std 1, and the classification biases at prior 0.01."""
+    kernels at std 1, Swin's relative-position bias tables at std 0.02, and
+    the classification biases at prior 0.01."""
     prior = -math.log((1 - 0.01) / 0.01)
     with torch.no_grad():
         for name, p in [*model.named_parameters(), *model.named_buffers()]:
@@ -106,7 +112,12 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             elif p.dim() == 1:  # norm scales
                 p.fill_(1.0)
             else:
-                std = 1.0 if "init_kernels" in name else 1.0 / math.sqrt(p[0].numel())
+                if leaf == "relative_position_bias_table":
+                    std = 0.02
+                elif "init_kernels" in name:
+                    std = 1.0
+                else:
+                    std = 1.0 / math.sqrt(p[0].numel())
                 draw = torch.randn(p.shape, generator=generator,
                                    device=generator.device) * std
                 p.copy_(draw)

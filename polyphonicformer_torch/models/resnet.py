@@ -39,6 +39,7 @@ class Bottleneck(nn.Module):
 class ResNet(nn.Module):
     def __init__(self, depth: str = "resnet50"):
         super().__init__()
+        self.out_channels = (256, 512, 1024, 2048)
         self.conv1 = nn.Conv2d(3, 64, 7, 2, padding=3, bias=False)
         self.bn1 = FrozenBatchNorm(64)
         inplanes, planes = 64, 64

@@ -1,0 +1,152 @@
+"""Swin window attention, K7 and K8: per window and head,
+``softmax(Q K^T * scale + bias (+ mask)) V`` over ws*ws tokens.
+
+- K7, :func:`window_attn_math`, replaces
+  ``polyphonicformer_tpu/ops/pallas/win_attn_math.py::_fwd_call``: windows
+  already partitioned, qkv (nw, L, 3C), window w takes ``mask[w % ntypes]``,
+  the f32 probabilities rounded to qkv's dtype before P V.
+- K8, :func:`window_attention`, replaces
+  ``polyphonicformer_tpu/ops/pallas/window_attn.py::_window_attention_fwd``:
+  the padded image itself, qkv (B, Hp, Wp, 3C), the kernel gathering each
+  window's rows from the image and writing them back in place; qkv upcast
+  to f32 first, the probabilities kept in f32, one cast at the end.
+
+Both CUDA kernels are ``csrc/window_attn.cu`` (the source note there gives
+the bound and design).  A CUDA tensor launches the kernel; a CPU tensor
+takes the plain version beside it, which repeats that kernel's arithmetic.
+Serving only: the JAX package differentiates a plain recompute, and the
+Swin train step is not ported.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _lib
+
+KERNEL_MATH = _lib.Kernel("poly_window_attn_math", [
+    _lib.P, _lib.I32, _lib.P, _lib.P, _lib.P, _lib.I64, _lib.I32, _lib.I32, _lib.I32,
+    _lib.I32, _lib.F32])
+KERNEL_IMAGE = _lib.Kernel("poly_window_attention", [
+    _lib.P, _lib.I32, _lib.P, _lib.P, _lib.P, _lib.I32, _lib.I32, _lib.I32, _lib.I32,
+    _lib.I32, _lib.I32, _lib.F32])
+
+_DTYPES = (torch.float32, torch.bfloat16)
+_MAX_L = 64  # tokens per window (csrc/window_attn.cu: two softmax columns a lane)
+_MAX_HD = 64  # head dim (shared memory of one block)
+
+
+def _scale(hd: int) -> float:
+    return 1.0 / float(hd) ** 0.5
+
+
+def _attend(q, k, v, bias, mask, p_dtype) -> torch.Tensor:
+    """q, k, v (nw, L, h, hd) f32; bias (h, L, L); mask (ntypes, L, L) with
+    window w taking ``mask[w % ntypes]``, or None.  Returns (nw, L, h*hd)
+    f32; the probabilities are rounded to ``p_dtype`` before P V."""
+    nw, l, h, hd = q.shape
+    attn = torch.einsum("wqhd,wkhd->whqk", q, k) * _scale(hd)
+    attn = attn + bias[None]
+    if mask is not None:
+        nt = mask.shape[0]
+        attn = (attn.reshape(nw // nt, nt, h, l, l) + mask[None, :, None]).reshape(nw, h, l, l)
+    p = torch.softmax(attn, dim=-1).to(p_dtype).float()
+    return torch.einsum("whqk,wkhd->wqhd", p, v).reshape(nw, l, h * hd)
+
+
+def _split_heads(x: torch.Tensor, num_heads: int):
+    """(nw, L, 3C) -> q, k, v each (nw, L, h, hd) f32."""
+    nw, l, c3 = x.shape
+    c = c3 // 3
+    return [x[..., i * c:(i + 1) * c].reshape(nw, l, num_heads, c // num_heads).float()
+            for i in range(3)]
+
+
+def window_attn_math_plain(qkv: torch.Tensor, bias: torch.Tensor, mask: torch.Tensor | None,
+                           num_heads: int) -> torch.Tensor:
+    """K7's arithmetic: Q K^T accumulated in f32 from qkv's dtype, * scale,
+    + bias, + mask, f32 softmax, P rounded to qkv's dtype, P V in f32, the
+    output in qkv's dtype."""
+    q, k, v = _split_heads(qkv, num_heads)
+    return _attend(q, k, v, bias.float(), None if mask is None else mask.float(),
+                   qkv.dtype).to(qkv.dtype)
+
+
+def window_attention_plain(qkv: torch.Tensor, bias: torch.Tensor, mask: torch.Tensor | None,
+                           num_heads: int, ws: int) -> torch.Tensor:
+    """K8's arithmetic on (B, Hp, Wp, 3C): qkv upcast to f32, the windows
+    regrouped, P kept in f32, one cast at the end.  mask (Hp/ws * Wp/ws, L,
+    L) is the same for every image."""
+    b, hp, wp, c3 = qkv.shape
+    c = c3 // 3
+    x = qkv.float().reshape(b, hp // ws, ws, wp // ws, ws, c3).permute(0, 1, 3, 2, 4, 5)
+    q, k, v = _split_heads(x.reshape(-1, ws * ws, c3), num_heads)
+    out = _attend(q, k, v, bias.float(), None if mask is None else mask.float(), torch.float32)
+    out = out.reshape(b, hp // ws, wp // ws, ws, ws, c).permute(0, 1, 3, 2, 4, 5)
+    return out.reshape(b, hp, wp, c).to(qkv.dtype)
+
+
+def _check(qkv, bias, mask, num_heads: int, l: int, ntypes_ok) -> tuple[int, int]:
+    """Raise unless the kernels take these tensors; returns (C, ntypes)."""
+    _lib.check_cuda("qkv", qkv, _DTYPES)
+    c3 = qkv.shape[-1]
+    if c3 % 3 or (c3 // 3) % num_heads:
+        raise ValueError(f"qkv width {c3} is not 3 x heads x head dim ({num_heads} heads)")
+    c = c3 // 3
+    if l > _MAX_L or c // num_heads > _MAX_HD:
+        raise ValueError(f"window of {l} tokens, head dim {c // num_heads}: the kernel takes "
+                         f"at most {_MAX_L} and {_MAX_HD}")
+    _lib.check_cuda("bias", bias, (torch.float32,), ndim=3)
+    if bias.shape != (num_heads, l, l) or bias.device != qkv.device:
+        raise ValueError(f"bias {tuple(bias.shape)} on {bias.device}, expected "
+                         f"({num_heads}, {l}, {l}) on {qkv.device}")
+    if mask is None:
+        return c, 1
+    _lib.check_cuda("mask", mask, (torch.float32,), ndim=3)
+    if mask.shape[1:] != (l, l) or not ntypes_ok(mask.shape[0]) or mask.device != qkv.device:
+        raise ValueError(f"mask {tuple(mask.shape)} on {mask.device} does not fit qkv "
+                         f"{tuple(qkv.shape)}")
+    return c, mask.shape[0]
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def window_attn_math(qkv: torch.Tensor, bias: torch.Tensor, mask: torch.Tensor | None,
+                     num_heads: int) -> torch.Tensor:
+    """K7.  qkv (nw, L, 3C) f32 or bf16; bias (heads, L, L) f32; mask
+    (ntypes, L, L) f32 with nw a multiple of ntypes, or None.  Returns (nw,
+    L, C) in qkv's dtype."""
+    if qkv.device.type == "cpu":
+        return window_attn_math_plain(qkv, bias, mask, num_heads)
+    if qkv.dim() != 3:
+        raise ValueError(f"qkv: expected (nw, L, 3C), got {tuple(qkv.shape)}")
+    nw, l, _ = qkv.shape
+    c, ntypes = _check(qkv, bias, mask, num_heads, l, lambda n: n > 0 and nw % n == 0)
+    out = torch.empty((nw, l, c), dtype=qkv.dtype, device=qkv.device)
+    KERNEL_MATH.launch(qkv.data_ptr(), int(qkv.dtype == torch.bfloat16), bias.data_ptr(),
+                       _ptr(mask), out.data_ptr(), nw, l, c, num_heads, ntypes,
+                       _scale(c // num_heads))
+    return out
+
+
+def window_attention(qkv: torch.Tensor, bias: torch.Tensor, mask: torch.Tensor | None,
+                     num_heads: int, ws: int) -> torch.Tensor:
+    """K8.  qkv (B, Hp, Wp, 3C) f32 or bf16 with Hp and Wp multiples of
+    ``ws``; bias (heads, ws*ws, ws*ws) f32; mask (Hp/ws * Wp/ws, ws*ws,
+    ws*ws) f32, the same for every image, or None.  Returns (B, Hp, Wp, C)
+    in qkv's dtype."""
+    if qkv.device.type == "cpu":
+        return window_attention_plain(qkv, bias, mask, num_heads, ws)
+    if qkv.dim() != 4:
+        raise ValueError(f"qkv: expected (B, Hp, Wp, 3C), got {tuple(qkv.shape)}")
+    b, hp, wp, _ = qkv.shape
+    if hp % ws or wp % ws:
+        raise ValueError(f"qkv: {hp}x{wp} is not a multiple of the window {ws}")
+    per_image = (hp // ws) * (wp // ws)
+    c, _ = _check(qkv, bias, mask, num_heads, ws * ws, lambda n: n == per_image)
+    out = torch.empty((b, hp, wp, c), dtype=qkv.dtype, device=qkv.device)
+    KERNEL_IMAGE.launch(qkv.data_ptr(), int(qkv.dtype == torch.bfloat16), bias.data_ptr(),
+                        _ptr(mask), out.data_ptr(), b, hp, wp, c, num_heads, ws,
+                        _scale(c // num_heads))
+    return out

@@ -2,13 +2,17 @@
 
     python -m polyphonicformer_torch.tools.profile_paths
 
-Three units of work, each at full width with seeded random weights:
+Units of work, each at full width with seeded random weights:
 
 * ``serve_frame``: one warm 1024x2048 frame of the R50 video serving path
   (``video_r50_1x``, ``make_video_step``, bf16 network and fusion);
 * ``train_step_f32``: one warm 1024x2048 train step of ``image_r50_2x``
   (batch 1, ``make_train_step`` with its non-finite guard, f32, TF32 off);
-* ``train_step_bf16``: the same step with ``compute_dtype="bfloat16"``.
+* ``train_step_bf16``: the same step with ``compute_dtype="bfloat16"``;
+* ``serve_frame_swinl``: one warm frame of the Swin-L path
+  (``video_swinl``, bf16 network and fusion);
+* ``serve_batched_swinl``: one warm ``batched_video_step`` over 2 clips of
+  the Swin-L path.
 
 For each: the median wall time of warm runs (host clock closed by
 ``torch.cuda.synchronize()``, not profiled) and peak device memory; then
@@ -30,9 +34,9 @@ import time
 # device kernel name fragments -> class; the first class that matches wins
 KERNEL_CLASSES = (
     ("port", ("mask_pool", "upsample_int", "phase_fusion", "map_render", "lsa_kernel",
-              "mask_loss")),
+              "mask_loss", "window_attn")),
     ("convolution", ("conv", "fprop", "dgrad", "wgrad", "cudnn", "implicit")),
-    ("matmul", ("gemm", "gemv", "cutlass", "cublas")),
+    ("matmul", ("gemm", "gemv", "cutlass", "cublas", "nvjet")),
     ("foreach", ("multi_tensor", "foreach")),
     ("norm", ("norm",)),
     ("reduce", ("reduce",)),
@@ -109,30 +113,39 @@ def measure(name: str, run, warm: int) -> dict:
     return info
 
 
-def serve_frame(dev):
+def serve_frame(dev, preset: str = "video_r50_1x", clips: int = 0):
+    """A frame of ``preset``'s serving path: ``make_video_step`` when
+    ``clips`` is 0, else ``make_batched_video_step`` over that many clips."""
     import torch
 
     from ..configs import model_preset
-    from ..infer.pipeline import make_video_step
+    from ..infer.pipeline import (init_batched_tracker_states, make_batched_video_step,
+                                  make_video_step)
     from ..infer.tracker import init_tracker_state
     from ..models import build_model
 
-    cfg = model_preset("video_r50_1x")
+    cfg = model_preset(preset)
     h, w = 1024, 2048
     gen = torch.Generator(device=dev).manual_seed(0)
     model = build_model(cfg, dev, generator=gen)
     with torch.no_grad():  # thing scores straddle instance_score_thr
         model.roi_head.mask_head[-1].fc_cls.bias.zero_()
     # colour blocks plus noise, so that segments and detections exist
-    base = torch.randn((1, h // 64, w // 64, 3), generator=gen, device=dev) * 2
+    n = max(clips, 1)
+    base = torch.randn((n, h // 64, w // 64, 3), generator=gen, device=dev) * 2
     frame = base.repeat_interleave(64, 1).repeat_interleave(64, 2)
-    frame = frame + 0.1 * torch.randn((1, h, w, 3), generator=gen, device=dev)
-    step = make_video_step(model, cfg, (h, w), compute_dtype=torch.bfloat16,
-                           fusion_dtype=torch.bfloat16)
-    state = [init_tracker_state(cfg.tracker, cfg.track_head.embed_channels, dev), 1]
+    frame = frame + 0.1 * torch.randn((n, h, w, 3), generator=gen, device=dev)
+    kw = dict(compute_dtype=torch.bfloat16, fusion_dtype=torch.bfloat16)
+    if clips:
+        step = make_batched_video_step(model, cfg, (h, w), **kw)
+        state = [init_batched_tracker_states(cfg, clips, dev), 1]
+    else:
+        step = make_video_step(model, cfg, (h, w), **kw)
+        state = [init_tracker_state(cfg.tracker, cfg.track_head.embed_channels, dev), 1]
 
     def run():
-        _, state[0] = step(frame, state[0], state[1])
+        fid = [state[1]] * clips if clips else state[1]
+        _, state[0] = step(frame, state[0], fid)
         state[1] += 1
 
     return run
@@ -174,7 +187,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     units = (("serve_frame", lambda: serve_frame(dev), 12),
              ("train_step_f32", lambda: train_step(dev, "float32"), 8),
-             ("train_step_bf16", lambda: train_step(dev, "bfloat16"), 8))
+             ("train_step_bf16", lambda: train_step(dev, "bfloat16"), 8),
+             ("serve_frame_swinl", lambda: serve_frame(dev, "video_swinl"), 12),
+             ("serve_batched_swinl", lambda: serve_frame(dev, "video_swinl", clips=2), 8))
     for name, build, warm in units:
         print(json.dumps(measure(name, build(), warm)), flush=True)
         torch.cuda.empty_cache()

@@ -1,7 +1,7 @@
 """Weight bridge between the JAX package's variables and the port's
 ``state_dict``, through the reference checkpoint's key mapping.
 
-The port's own copy of the ResNet part of
+The port's own copy of the ResNet and Swin parts of
 ``polyphonicformer_tpu/tools/convert_torch_ckpt.py`` (``build_param_mapping``
 and its helpers, the layout transforms and the tree flattening), so the
 port imports nothing of the JAX package; ``tests/test_torch_weights.py``
@@ -13,6 +13,8 @@ the reference model's state dict and a layout transform:
   linear weight (O, I)         -> (I, O)
   1x1 query convs (N, C, 1, 1) -> (N, C)
   track_head.fcs.0 (O, C*7*7) C-major -> (7*7*C, O) HWC-major
+  Swin patch merging (O, C*2*2) C-major -> (2*2*C, O) HWC-major, and its
+  LayerNorm's (C*2*2,) vectors likewise
 
 JAX -> port: :func:`from_jax_variables`.  Port -> JAX:
 :func:`to_jax_variables` on :func:`to_numpy_state_dict` (also used on a
@@ -25,7 +27,10 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from .configs import SWIN_SPECS
+
 _STAGE_BLOCKS = {"resnet50": (3, 4, 6, 3)}
+_SWIN_DEPTHS = {name: spec[1] for name, spec in SWIN_SPECS.items()}
 
 Mapping = Dict[str, Tuple[str, str]]
 
@@ -65,24 +70,61 @@ def _frozen_bn(flax_path: str, torch_prefix: str) -> Mapping:
     }
 
 
+def _swin_mapping(depths) -> Mapping:
+    """The Swin backbone in the mmdet state-dict layout: patch_embed,
+    stages.{s}.blocks.{b}.{norm1, attn.w_msa, norm2, ffn}, stages.{s}
+    .downsample and the output norms norm{s}.  The bias table copies as it
+    is; patch merging's reduction weight and pre-norm vectors are reordered
+    from the reference's channel-major 2x2 gather to JAX's (y, x, C)."""
+    m: Mapping = {}
+    m["backbone/patch_embed/kernel"] = ("backbone.patch_embed.projection.weight", "conv")
+    m["backbone/patch_embed/bias"] = ("backbone.patch_embed.projection.bias", "copy")
+    m.update(_ln("backbone/patch_norm", "backbone.patch_embed.norm"))
+    for s, depth_s in enumerate(depths):
+        for b in range(depth_s):
+            fp = f"backbone/stage{s}_block{b}"
+            tp = f"backbone.stages.{s}.blocks.{b}"
+            m.update(_ln(f"{fp}/norm1", f"{tp}.norm1"))
+            m.update(_linear(f"{fp}/attn/qkv", f"{tp}.attn.w_msa.qkv"))
+            m.update(_linear(f"{fp}/attn/proj", f"{tp}.attn.w_msa.proj"))
+            m[f"{fp}/attn/relative_position_bias_table"] = (
+                f"{tp}.attn.w_msa.relative_position_bias_table", "copy")
+            m.update(_ln(f"{fp}/norm2", f"{tp}.norm2"))
+            m.update(_linear(f"{fp}/mlp_fc1", f"{tp}.ffn.layers.0.0"))
+            m.update(_linear(f"{fp}/mlp_fc2", f"{tp}.ffn.layers.1"))
+        if s < len(depths) - 1:
+            dp = f"backbone.stages.{s}.downsample"
+            m[f"backbone/merge{s}/norm/scale"] = (f"{dp}.norm.weight", "vec_chw2hwc_2")
+            m[f"backbone/merge{s}/norm/bias"] = (f"{dp}.norm.bias", "vec_chw2hwc_2")
+            m[f"backbone/merge{s}/reduction/kernel"] = (f"{dp}.reduction.weight",
+                                                        "linear_chw2hwc_2")
+        m.update(_ln(f"backbone/out_norm{s}", f"backbone.norm{s}"))
+    return m
+
+
 def build_param_mapping(num_stages: int = 3, depth: str = "resnet50",
                         with_track: bool = False, num_cls_fcs: int = 1,
                         num_mask_fcs: int = 1) -> Mapping:
-    """flax path -> (torch state_dict key, transform), ResNet backbones."""
-    if depth not in _STAGE_BLOCKS:
+    """flax path -> (torch state_dict key, transform), ResNet-50 and Swin
+    backbones."""
+    m: Mapping = {}
+    if depth in _SWIN_DEPTHS:
+        m.update(_swin_mapping(_SWIN_DEPTHS[depth]))
+    elif depth not in _STAGE_BLOCKS:
         raise NotImplementedError(f"backbone {depth!r} is not ported yet")
-    m: Mapping = {"backbone/conv1/kernel": ("backbone.conv1.weight", "conv")}
-    m.update(_frozen_bn("backbone/bn1", "backbone.bn1"))
-    for s, blocks in enumerate(_STAGE_BLOCKS[depth]):
-        for b in range(blocks):
-            fp = f"backbone/layer{s + 1}_{b}"
-            tp = f"backbone.layer{s + 1}.{b}"
-            for c in (1, 2, 3):
-                m[f"{fp}/conv{c}/kernel"] = (f"{tp}.conv{c}.weight", "conv")
-                m.update(_frozen_bn(f"{fp}/bn{c}", f"{tp}.bn{c}"))
-            if b == 0:
-                m[f"{fp}/downsample_conv/kernel"] = (f"{tp}.downsample.0.weight", "conv")
-                m.update(_frozen_bn(f"{fp}/downsample_bn", f"{tp}.downsample.1"))
+    else:
+        m["backbone/conv1/kernel"] = ("backbone.conv1.weight", "conv")
+        m.update(_frozen_bn("backbone/bn1", "backbone.bn1"))
+        for s, blocks in enumerate(_STAGE_BLOCKS[depth]):
+            for b in range(blocks):
+                fp = f"backbone/layer{s + 1}_{b}"
+                tp = f"backbone.layer{s + 1}.{b}"
+                for c in (1, 2, 3):
+                    m[f"{fp}/conv{c}/kernel"] = (f"{tp}.conv{c}.weight", "conv")
+                    m.update(_frozen_bn(f"{fp}/bn{c}", f"{tp}.bn{c}"))
+                if b == 0:
+                    m[f"{fp}/downsample_conv/kernel"] = (f"{tp}.downsample.0.weight", "conv")
+                    m.update(_frozen_bn(f"{fp}/downsample_bn", f"{tp}.downsample.1"))
 
     for i in range(4):
         m[f"neck/lateral_{i}/kernel"] = (f"neck.lateral_convs.{i}.conv.weight", "conv")
@@ -166,6 +208,10 @@ def _transform(arr: np.ndarray, kind: str) -> np.ndarray:
         o, ckk = arr.shape
         c = ckk // (k * k)
         return np.transpose(arr.reshape(o, c, k, k).transpose(0, 2, 3, 1).reshape(o, -1), (1, 0))
+    if kind.startswith("vec_chw2hwc_"):
+        k = int(kind.rsplit("_", 1)[1])
+        c = arr.shape[0] // (k * k)
+        return arr.reshape(c, k, k).transpose(1, 2, 0).reshape(-1)
     raise ValueError(kind)
 
 
@@ -185,6 +231,10 @@ def _inverse_transform(arr: np.ndarray, kind: str) -> np.ndarray:
         c = kkc // (k * k)
         w = np.transpose(arr, (1, 0)).reshape(o, k, k, c)
         return w.transpose(0, 3, 1, 2).reshape(o, -1)
+    if kind.startswith("vec_chw2hwc_"):
+        k = int(kind.rsplit("_", 1)[1])
+        c = arr.shape[0] // (k * k)
+        return arr.reshape(k, k, c).transpose(2, 0, 1).reshape(-1)
     raise ValueError(kind)
 
 

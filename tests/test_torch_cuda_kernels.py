@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from polyphonicformer_torch.ops.cuda import (lsa, map_render, mask_loss, mask_pool,
-                                             phase_fusion, upsample2)
+                                             phase_fusion, upsample2, window_attn)
 
 pytestmark = pytest.mark.cuda
 
@@ -224,3 +224,141 @@ def test_train_step_never_syncs(dev):
     assert [k.launches - b for k, b in zip(kernels, before)] == [4, 1, 2, 2]
     assert float(metrics["skipped_nonfinite"]) == 0.0
     assert bool(torch.isfinite(metrics["total_loss"]))
+
+
+def _attn_close(got, want):
+    """f32: sums in another order (1e-5).  bf16: within one bf16 spacing
+    (ulp) of the output everywhere, as one flipped output rounding; K7's
+    rounding of P leaves no more room (without it, K7's outputs move by up
+    to hundreds of ulps)."""
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        return
+    assert got.dtype == want.dtype == torch.bfloat16
+    got, want = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(got.abs(), want.abs()))
+    assert ((got - want).abs() <= torch.ldexp(torch.ones_like(got), e - 8)).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("ws,hd", [(7, 32), (8, 64)])
+def test_window_attn_math(dev, dtype, masked, ws, hd):
+    """K7 against its plain version: 70 windows of two images (mask of 35
+    window types); ws 8 / hd 64 is the largest window and head the kernel
+    takes (over 48 KB of shared memory)."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    heads, l = 3, ws * ws
+    qkv = torch.randn((70, l, 3 * heads * hd), generator=g, device=dev).to(dtype)
+    bias = torch.randn((heads, l, l), generator=g, device=dev) * 0.5
+    mask = ((torch.rand((35, l, l), generator=g, device=dev) < 0.3) * -100.0) if masked else None
+    before = window_attn.KERNEL_MATH.launches
+    got = window_attn.window_attn_math(qkv, bias, mask, heads)
+    assert window_attn.KERNEL_MATH.launches == before + 1
+    want = window_attn.window_attn_math_plain(qkv, bias, mask, heads)
+    _attn_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_attention(dev, dtype, masked):
+    """K8 against its plain version on two 14x63 images, the shift mask of
+    their 18 windows."""
+    from polyphonicformer_torch.models.swin import _shift_attn_mask
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    heads, hd, ws = 3, 32, 7
+    qkv = torch.randn((2, 14, 63, 3 * heads * hd), generator=g, device=dev).to(dtype)
+    bias = torch.randn((heads, 49, 49), generator=g, device=dev) * 0.5
+    mask = torch.from_numpy(_shift_attn_mask(14, 63, ws, 3)).to(dev) if masked else None
+    before = window_attn.KERNEL_IMAGE.launches
+    got = window_attn.window_attention(qkv, bias, mask, heads, ws)
+    assert window_attn.KERNEL_IMAGE.launches == before + 1
+    want = window_attn.window_attention_plain(qkv, bias, mask, heads, ws)
+    _attn_close(got, want)
+
+
+def test_window_attn_wrappers_refuse(dev):
+    bias = torch.zeros((2, 49, 49), device=dev)
+    with pytest.raises(TypeError):  # float16
+        window_attn.window_attn_math(torch.zeros((4, 49, 96), device=dev, dtype=torch.float16),
+                                     bias, None, 2)
+    with pytest.raises(ValueError):  # 81 tokens a window
+        window_attn.window_attention(torch.zeros((1, 9, 9, 96), device=dev),
+                                     torch.zeros((2, 81, 81), device=dev), None, 2, 9)
+    with pytest.raises(ValueError):  # head dim 80
+        window_attn.window_attn_math(torch.zeros((4, 49, 480), device=dev), bias, None, 2)
+    with pytest.raises(ValueError):  # not contiguous
+        window_attn.window_attn_math(torch.zeros((4, 49, 192), device=dev)[..., ::2], bias,
+                                     None, 2)
+    with pytest.raises(ValueError):  # 3 window types for 4 windows
+        window_attn.window_attn_math(torch.zeros((4, 49, 96), device=dev), bias,
+                                     torch.zeros((3, 49, 49), device=dev), 2)
+    with pytest.raises(ValueError):  # 14x21 is 6 windows, not 4
+        window_attn.window_attention(torch.zeros((1, 14, 21, 96), device=dev), bias,
+                                     torch.zeros((4, 49, 49), device=dev), 2, 7)
+
+
+def test_swin_frame_never_syncs(dev):
+    """After a warm-up frame (which uploads the shift masks and the bias
+    index), a bf16 swin_tiny frame reads nothing back to the host and
+    launches K8 10 times (stages 0-2, at most 12 heads) and K7 twice."""
+    from polyphonicformer_torch.configs import model_preset
+    from polyphonicformer_torch.infer.pipeline import video_frame_step
+    from polyphonicformer_torch.infer.tracker import init_tracker_state
+    from polyphonicformer_torch.models import build_model
+
+    cfg = model_preset("debug_tiny_video", backbone="swin_tiny", max_per_img=100)
+    g = torch.Generator(device=dev).manual_seed(0)
+    model = build_model(cfg, dev, generator=g).to(torch.bfloat16)
+    frames = torch.randn((2, 1, 64, 128, 3), generator=g, device=dev)
+    state = init_tracker_state(cfg.tracker, cfg.track_head.embed_channels, dev)
+    kw = dict(compute_dtype=torch.bfloat16, fusion_dtype=torch.bfloat16)
+    _, state = video_frame_step(model, cfg, frames[0], state, 1, (64, 128), **kw)
+    torch.cuda.synchronize()
+    before = (window_attn.KERNEL_IMAGE.launches, window_attn.KERNEL_MATH.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, state = video_frame_step(model, cfg, frames[1], state, 2, (64, 128), **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out.semantic.shape == (64, 128)
+    assert (window_attn.KERNEL_IMAGE.launches - before[0],
+            window_attn.KERNEL_MATH.launches - before[1]) == (10, 2)
+
+
+def test_batched_video_step_never_syncs(dev):
+    """The batched step over 2 clips (bf16, debug widths): after a warm-up
+    step, one step reads nothing back to the host and launches K3 and K4
+    once per clip; its per-clip maps equal two one-clip frame steps."""
+    from polyphonicformer_torch.configs import model_preset
+    from polyphonicformer_torch.infer.pipeline import (batched_video_step,
+                                                       init_batched_tracker_states,
+                                                       video_frame_step)
+    from polyphonicformer_torch.infer.tracker import init_tracker_state
+    from polyphonicformer_torch.models import build_model
+
+    cfg = model_preset("debug_tiny_video", max_per_img=100)
+    g = torch.Generator(device=dev).manual_seed(0)
+    model = build_model(cfg, dev, generator=g).to(torch.bfloat16)
+    frames = torch.randn((2, 2, 64, 128, 3), generator=g, device=dev)
+    kw = dict(compute_dtype=torch.bfloat16, fusion_dtype=torch.bfloat16)
+    states = init_batched_tracker_states(cfg, 2, dev)
+    _, states = batched_video_step(model, cfg, frames[0], states, [1, 1], (64, 128), **kw)
+    torch.cuda.synchronize()
+    before = (phase_fusion.KERNEL.launches, map_render.KERNEL.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, states = batched_video_step(model, cfg, frames[1], states, [2, 2], (64, 128), **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (phase_fusion.KERNEL.launches - before[0], map_render.KERNEL.launches - before[1]) \
+        == (2, 2)
+    assert out.semantic.shape == (2, 64, 128) and states.ids.shape[0] == 2
+    for b in range(2):
+        state = init_tracker_state(cfg.tracker, cfg.track_head.embed_channels, dev)
+        for t in range(2):
+            fo, state = video_frame_step(model, cfg, frames[t, b:b + 1], state, t + 1,
+                                         (64, 128), **kw)
+        agree = (fo.semantic == out.semantic[b]).float().mean()
+        assert agree >= 0.999, float(agree)  # a batch of 2 may sum in another order

@@ -19,8 +19,10 @@ def test_busy_is_the_union_of_intervals(intervals, want):
 @pytest.mark.parametrize("name,cls", [
     ("(anonymous namespace)::mask_loss_bwd(float const*, ...)", "port"),
     ("upsample_int_fwd(float const*, float*, long long, int, int, int, int)", "port"),
+    ("void (anonymous namespace)::window_attn_kernel<__nv_bfloat16, true>(...)", "port"),
     ("sm90_xmma_fprop_implicit_gemm_f32f32_tf32f32_f32_nhwckrsc_nhwc", "convolution"),
     ("cutlass_80_simt_sgemm_128x128_8x4_nn_align1", "matmul"),
+    ("nvjet_tst_256x128_64x4_1x2_h_bz_coopA_bias_TNT", "matmul"),
     ("void at::native::(anonymous namespace)::multi_tensor_apply_kernel<...>", "foreach"),
     ("void at::native::vectorized_elementwise_kernel<4, ...>", "elementwise"),
     ("Memcpy DtoD (Device -> Device)", "copy"),

@@ -1,5 +1,6 @@
 """The weight bridge between the JAX package's variables and the port's
 state_dict, and the port's independence from JAX and the JAX package."""
+import dataclasses
 import os
 import subprocess
 import sys
@@ -41,16 +42,17 @@ def jax_tree():
     return cfg, model_preset("debug_tiny_video"), jax.tree_util.tree_map(np.asarray, dict(tree))
 
 
-@pytest.mark.parametrize("preset", ["video_r50_1x", "debug_tiny_video"])
+@pytest.mark.parametrize("preset", ["video_r50_1x", "debug_tiny_video", "video_swinl"])
 def test_state_dict_keys_are_reference_keys(preset):
-    """590 keys for R50 + 3 stages + track head, exactly the mapping's."""
+    """590 keys for R50 + 3 stages + track head (658 on Swin-L), exactly the
+    mapping's."""
     cfg = get_preset(preset).model
     with torch.device("meta"):
         model = PolyphonicFormer(model_preset(preset))
     mapping = build_param_mapping(cfg.num_stages, cfg.backbone, cfg.with_track)
     assert set(model.state_dict()) == {key for key, _ in mapping.values()}
-    if preset == "video_r50_1x":
-        assert len(model.state_dict()) == 590
+    want = {"video_r50_1x": 590, "video_swinl": 658}.get(preset)
+    assert want is None or len(model.state_dict()) == want
 
 
 def test_bridge_loads_strict_and_round_trips(jax_tree):
@@ -79,19 +81,26 @@ def test_track_fc0_is_the_c_major_flatten(jax_tree):
                                   kernel[(y * 7 + x) * c + ch])
 
 
-@pytest.mark.parametrize("preset", ["video_r50_1x", "image_r50_2x", "debug_tiny_video"])
+@pytest.mark.parametrize("preset", ["video_r50_1x", "image_r50_2x", "debug_tiny_video",
+                                    "video_swinl", "swin_tiny"])
 def test_mapping_copy_equals_the_jax_tool(preset):
-    """The port's copy of the key mapping is the JAX tool's, entry for entry."""
-    cfg = get_preset(preset).model
+    """The port's copy of the key mapping is the JAX tool's, entry for entry
+    (key and transform); ``swin_tiny`` is debug_tiny_video on that backbone."""
+    if preset == "swin_tiny":
+        cfg = dataclasses.replace(get_preset("debug_tiny_video").model, backbone=preset)
+    else:
+        cfg = get_preset(preset).model
     args = (cfg.num_stages, cfg.backbone, cfg.with_track, cfg.num_cls_fcs, cfg.num_mask_fcs)
     assert weights.build_param_mapping(*args) == jax_ckpt.build_param_mapping(*args)
 
 
-@pytest.mark.parametrize("kind", ["copy", "conv", "linear", "squeeze11", "linear_chw2hwc_7"])
+@pytest.mark.parametrize("kind", ["copy", "conv", "linear", "squeeze11", "linear_chw2hwc_7",
+                                  "linear_chw2hwc_2", "vec_chw2hwc_2"])
 def test_transforms_equal_the_jax_tool(kind):
     rng = np.random.RandomState(1)
     shape = {"copy": (5,), "conv": (4, 3, 3, 2), "linear": (6, 5), "squeeze11": (7, 3, 1, 1),
-             "linear_chw2hwc_7": (6, 3 * 49)}[kind]
+             "linear_chw2hwc_7": (6, 3 * 49), "linear_chw2hwc_2": (6, 5 * 4),
+             "vec_chw2hwc_2": (5 * 4,)}[kind]
     torch_side = rng.randn(*shape).astype(np.float32)
     jax_side = jax_ckpt._transform(torch_side, kind)
     np.testing.assert_array_equal(weights._transform(torch_side, kind), jax_side)
@@ -109,6 +118,40 @@ def test_to_jax_variables_equals_convert_state_dict(jax_tree):
         for path in w:
             np.testing.assert_array_equal(g[path], w[path], err_msg=path)
     assert weights.unflatten_tree(weights.flatten_tree(tree["params"])).keys() == tree["params"].keys()
+
+
+@pytest.mark.parametrize("backbone", ["swin_tiny", "swin_large"])
+def test_swin_bridge_round_trips_strict(backbone):
+    """Port -> JAX -> port on a Swin model loads with ``strict=True`` and
+    gives back every value; the JAX side equals ``convert_state_dict``.
+    swin_tiny: the debug widths, seeded weights.  swin_large: the
+    ``video_swinl`` model (195M backbone parameters), so each leaf is a
+    cheap counting pattern instead of a draw."""
+    if backbone == "swin_tiny":
+        pcfg = model_preset("debug_tiny_video", backbone=backbone)
+        jcfg = dataclasses.replace(get_preset("debug_tiny_video").model, backbone=backbone)
+        sd = to_numpy_state_dict(build_model(pcfg, "cpu",
+                                             generator=torch.Generator().manual_seed(0)))
+    else:
+        pcfg, jcfg = model_preset("video_swinl"), get_preset("video_swinl").model
+        with torch.device("meta"):
+            shapes = PolyphonicFormer(pcfg).state_dict()
+        sd = {k: (np.arange(v.numel(), dtype=np.float32) % 251).reshape(v.shape)
+              for k, v in shapes.items()}
+    variables = to_jax_variables(sd, pcfg)
+    if backbone == "swin_tiny":
+        want = flatten_tree(convert_state_dict(sd, jcfg)["params"])
+        got = weights.flatten_tree(variables["params"])
+        assert set(got) == set(want)
+        for path in want:
+            np.testing.assert_array_equal(got[path], want[path], err_msg=path)
+    back = from_jax_variables(variables, pcfg)
+    with torch.device("meta"):
+        model = PolyphonicFormer(pcfg)
+    result = model.load_state_dict(back, strict=True, assign=True)
+    assert not result.missing_keys and not result.unexpected_keys
+    for key, value in model.state_dict().items():
+        np.testing.assert_array_equal(value.numpy(), sd[key], err_msg=key)
 
 
 def test_import_leaves_jax_out():
