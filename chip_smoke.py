@@ -53,8 +53,15 @@ def _nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+SLEEP_CYCLES = 2_000_000  # ~1 ms of device clock queued ahead of each timed call
+
+
 def _time_ms(fn, reps: int = 20) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` warm runs (CUDA events)."""
+    """Median device milliseconds of ``fn`` over ``reps`` warm runs (CUDA
+    events).  Each run is queued behind a device sleep, so the host issues
+    ``fn``'s launches before the card reaches them and the events time the
+    card, not the wrapper's host time (a call whose host time exceeds the
+    sleep, as some plain versions', still shows it)."""
     import torch
 
     fn()
@@ -63,6 +70,7 @@ def _time_ms(fn, reps: int = 20) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         a.record()
         fn()
         b.record()
@@ -96,51 +104,72 @@ def check_kernels(dev, gen) -> list[dict]:
     from polyphonicformer_torch.ops.cuda import map_render, mask_pool, phase_fusion, upsample2
 
     rows = []
-    # K1 mask_pool: rpn head (100 rows) and each stage (111 rows); feats are
-    # the NCHW module tensors seen as (B, h, w, C) views, bf16 on this path
+
+    def pool_row(name, logits, feats):
+        """K1 against its plain version (rtol 1e-5 of sum |feat| over each
+        mask), twice for equal bits, then timed.  Library: the cuBLAS
+        product of the pre-thresholded mask in the features' dtype (the
+        threshold itself is outside the timed call)."""
+        got = mask_pool.masked_pool(logits, feats)
+        again = mask_pool.masked_pool(logits, feats)
+        torch.cuda.synchronize()
+        want = mask_pool.mask_pool_plain(logits, feats)
+        hard = (torch.sigmoid(logits.float()) > 0.5).float()
+        bound = 1e-5 * torch.einsum("bnhw,bhwc->bnc", hard, feats.float().abs()) + 1e-6
+        diff = (got - want).abs()
+        _check(name, bool((diff <= bound).all()),
+               f"max err {float(diff.max())} beyond rtol 1e-5 of sum|feat|")
+        _check(name, torch.equal(got, again), "two launches differ")
+        hard = hard.to(feats.dtype).flatten(2)
+        feats_flat = feats.flatten(1, 2)
+        # f32 features: three exact bf16 products on the tensor cores
+        ops = 2.0 * logits.numel() * feats.shape[-1] * (3 if feats.dtype == torch.float32 else 1)
+        return dict(
+            name=name, kernel="mask_pool", route="cuda",
+            source="polyphonicformer_torch/csrc/mask_pool.cu",
+            replaces="polyphonicformer_tpu/ops/pallas/mask_pool.py:45",
+            max_abs_err=float(diff.max()),
+            ms=_time_ms(lambda: mask_pool.masked_pool(logits, feats)),
+            plain_ms=_time_ms(lambda: mask_pool.mask_pool_plain(logits, feats)),
+            library_ms=_time_ms(lambda: torch.matmul(hard, feats_flat)),
+            shape=f"logits {tuple(logits.shape)} {logits.dtype}, feats NCHW "
+                  f"{tuple(feats.permute(0, 3, 1, 2).shape)} {feats.dtype}",
+            **_bound(_nbytes(logits, feats, got), ops, "bf16"))
+
+    # K1 mask_pool: each stage (111 rows) and the rpn head (100 rows); feats
+    # are the NCHW module tensors seen as (B, h, w, C) views, bf16 when
+    # serving; f32 logits and feats in the f32 train step
     feats = torch.randn((1, 256, 128, 256), generator=gen, device=dev).to(torch.bfloat16)
     feats_hwc = feats.permute(0, 2, 3, 1)
-    err = 0.0
-    for n in (100, 111):
+    for n, name in ((111, "mask_pool"), (100, "mask_pool_n100")):
         logits = torch.randn((1, n, 128, 256), generator=gen, device=dev).to(torch.bfloat16)
-        got = mask_pool.masked_pool(logits, feats_hwc)
-        torch.cuda.synchronize()
-        want = mask_pool.mask_pool_plain(logits, feats_hwc)
-        hard = (torch.sigmoid(logits.float()) > 0.5).float()
-        bound = 1e-5 * torch.einsum("bnhw,bhwc->bnc", hard, feats_hwc.float().abs()) + 1e-6
-        diff = (got - want).abs()
-        _check(f"mask_pool n={n}", bool((diff <= bound).all()),
-               f"max err {float(diff.max())} beyond rtol 1e-5 of sum|feat|")
-        err = max(err, float(diff.max()))
-    # library call: the cuBLAS product of the thresholded mask (the
-    # threshold itself is outside the timed call)
-    hard = (torch.sigmoid(logits.float()) > 0.5).to(torch.bfloat16).flatten(2)
-    feats_flat = feats_hwc.flatten(1, 2)
-    out = mask_pool.masked_pool(logits, feats_hwc)
-    rows.append(dict(
-        name="mask_pool", route="cuda", source="polyphonicformer_torch/csrc/mask_pool.cu",
-        replaces="polyphonicformer_tpu/ops/pallas/mask_pool.py:45", max_abs_err=err,
-        ms=_time_ms(lambda: mask_pool.masked_pool(logits, feats_hwc)),
-        plain_ms=_time_ms(lambda: mask_pool.mask_pool_plain(logits, feats_hwc)),
-        library_ms=_time_ms(lambda: torch.matmul(hard, feats_flat)),
-        **_bound(_nbytes(logits, feats, out), 2.0 * logits.numel() * feats.shape[1], "bf16")))
+        rows.append(pool_row(name, logits, feats_hwc))
+    logits = torch.randn((1, 111, 128, 256), generator=gen, device=dev)
+    feats32 = torch.randn((1, 256, 128, 256), generator=gen, device=dev).permute(0, 2, 3, 1)
+    rows.append(pool_row("mask_pool_f32", logits, feats32))
+    del feats32
 
-    # K2 upsample: x2 of the stage mask/depth logits, x4 to full resolution
-    err = 0.0
-    for shape, f in (((111, 128, 256), 2), ((1, 128, 256), 2), ((1, 256, 512), 4)):
+    # K2 upsample, bit-equal: x2 of the serving stage masks, of the stacked
+    # training masks, of the depth logits (checked, not timed), x4 of the
+    # depth to full resolution
+    for shape, f, name in (((111, 128, 256), 2, "upsample2"), ((444, 128, 256), 2, "upsample2_444"),
+                           ((1, 128, 256), 2, None), ((1, 256, 512), 4, "upsample2_x4")):
         x = torch.randn(shape, generator=gen, device=dev)
         got = upsample2.upsample_int(x, f)
         torch.cuda.synchronize()
-        err = max(err, _exact(f"upsample x{f} {shape}", got, upsample2.upsample_int_plain(x, f, f)))
-    x2 = torch.randn((111, 128, 256), generator=gen, device=dev)
-    rows.append(dict(
-        name="upsample2", route="cuda", source="polyphonicformer_torch/csrc/upsample.cu",
-        replaces="polyphonicformer_tpu/ops/pallas/upsample2.py:154", max_abs_err=err,
-        ms=_time_ms(lambda: upsample2.upsample_int(x2, 2)),
-        plain_ms=_time_ms(lambda: upsample2.upsample_int_plain(x2, 2, 2)),
-        library_ms=_time_ms(lambda: F.interpolate(x2[:, None], scale_factor=2, mode="bilinear",
-                                                  align_corners=False)),
-        **_bound(_nbytes(x2) * 5)))
+        err = _exact(f"upsample x{f} {shape}", got, upsample2.upsample_int_plain(x, f, f))
+        if name is None:
+            continue
+        rows.append(dict(
+            name=name, kernel="upsample2", route="cuda",
+            source="polyphonicformer_torch/csrc/upsample.cu",
+            replaces="polyphonicformer_tpu/ops/pallas/upsample2.py:154", max_abs_err=err,
+            ms=_time_ms(lambda: upsample2.upsample_int(x, f)),
+            plain_ms=_time_ms(lambda: upsample2.upsample_int_plain(x, f, f)),
+            library_ms=_time_ms(lambda: F.interpolate(x[:, None], scale_factor=f, mode="bilinear",
+                                                      align_corners=False)),
+            shape=f"{shape} f32 x{f}", **_bound(_nbytes(x, got))))
+        del got
 
     # K3 phase_fusion: 111 bf16 candidates at stride 4 -> 1024x2048, f32
     # scores, pruned to 64 full rows and not
@@ -417,9 +446,10 @@ def main() -> int:
     swin_launches, swin_info = run_swin(dev)
     print(f"[6 swin] {json.dumps(swin_info)}", flush=True)
     for r in rows:
-        by_path = {"serve": serve_launches.get(r["name"], 0),
-                   "train": train_launches.get(r["name"], 0),
-                   "swin": swin_launches.get(r["name"], 0)}
+        kernel = r.pop("kernel", r["name"])  # rows at several shapes share a kernel
+        by_path = {"serve": serve_launches.get(kernel, 0),
+                   "train": train_launches.get(kernel, 0),
+                   "swin": swin_launches.get(kernel, 0)}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         _check(f"launches {r['name']}", r["launches"] > 0, "never launched on a main path")

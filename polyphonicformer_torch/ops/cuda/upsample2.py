@@ -5,20 +5,26 @@ Replaces ``polyphonicformer_tpu/ops/pallas/upsample2.py::_call_fwd`` and
 VJP): align_corners=False with edge replication, in f32, rows first and
 then columns with the phase weights of ``ops/resize.py::_phase_weights``;
 the gradient is the exact transposed stencil (``_down_axis``), columns
-first and then rows.  The CUDA kernels are in ``csrc/upsample.cu`` (one
-thread per output element forward, one per source element backward; the
-source notes there give the bound and design).  :func:`upsample_int` is a
+first and then rows.  The CUDA kernels are in ``csrc/upsample.cu`` (forward:
+4 source columns of one source row per thread, float4 loads and stores,
+the phase weights of :func:`phase_weights` handed in by the host, factors 2
+and 4 specialised; backward: one thread per source element; the source
+notes there give the bound and design).  :func:`upsample_int` is a
 ``torch.autograd.Function``: a CUDA tensor launches the kernels in both
 directions, a CPU tensor takes the plain versions in both.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
 from . import _lib
 
 KERNEL = _lib.Kernel("poly_upsample_int", [
-    _lib.P, _lib.P, _lib.I64, _lib.I32, _lib.I32, _lib.I32, _lib.I32])
+    _lib.P, _lib.P, _lib.I64, _lib.I32, _lib.I32, _lib.I32, _lib.I32,
+    _lib.P, _lib.P, _lib.P, _lib.P, _lib.I32])
 KERNEL_BWD = _lib.Kernel("poly_upsample_int_bwd", [
     _lib.P, _lib.P, _lib.I64, _lib.I32, _lib.I32, _lib.I32, _lib.I32])
 
@@ -35,6 +41,16 @@ def phase_weights(factor: int) -> list[tuple[int, float, float]]:
         lam = src - base
         out.append((base, float(np.float32(1.0 - lam)), float(np.float32(lam))))
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _phase_args(factor: int) -> tuple:
+    """The kernel's view of :func:`phase_weights`: host arrays of the base
+    offsets (int32) and of the (w0, w1) pairs (f32), kept alive here."""
+    table = phase_weights(factor)
+    bases = (ctypes.c_int * factor)(*(b for b, _, _ in table))
+    weights = (ctypes.c_float * (2 * factor))(*(w for _, w0, w1 in table for w in (w0, w1)))
+    return bases, weights
 
 
 def upsample_axis_plain(x: torch.Tensor, factor: int, dim: int) -> torch.Tensor:
@@ -98,8 +114,13 @@ def _upsample_int_cuda(x: torch.Tensor, fy: int, fx: int) -> torch.Tensor:
     _lib.check_cuda("x", x, (torch.float32,), ndim=3)
     _check_factors(fy, fx)
     n, h, w = x.shape
+    if n > 65535:
+        raise ValueError(f"upsample_int: {n} images exceed the kernel's grid (65535)")
     y = torch.empty((n, h * fy, w * fx), device=x.device, dtype=torch.float32)
-    KERNEL.launch(x.data_ptr(), y.data_ptr(), n, h, w, fy, fx)
+    (by, wy), (bx, wx) = _phase_args(fy), _phase_args(fx)
+    vec = w % 4 == 0 and x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0
+    KERNEL.launch(x.data_ptr(), y.data_ptr(), n, h, w, fy, fx, ctypes.addressof(by),
+                  ctypes.addressof(wy), ctypes.addressof(bx), ctypes.addressof(wx), int(vec))
     return y
 
 

@@ -19,7 +19,8 @@ For each: the median wall time of warm runs (host clock closed by
 one run under ``torch.profiler`` with CUDA activity: the device's busy
 time (the union of the intervals of its kernels, copies and sets), the
 idle share of the unprofiled wall time that leaves, the number of kernels,
-the device time by kernel class and the ten longest kernels.  One JSON
+the device time by kernel class, the ten longest kernels, and the device
+time and launches of each of the port's own kernels.  One JSON
 line per unit on standard output, then the card's name and power limit.
 """
 from __future__ import annotations
@@ -106,10 +107,13 @@ def measure(name: str, run, warm: int) -> dict:
         ms, n = by_name.get(kname, (0.0, 0))
         by_name[kname] = (ms + (e - s) / 1e3, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    port = {k: (ms, n) for k, (ms, n) in by_name.items() if kernel_class(k) == "port"}
     info.update(
         device_busy_ms=busy, idle_share=max(0.0, 1.0 - busy / wall), kernels=len(events),
         device_ms_by_class=dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
-        top_kernels=[{"name": k[:100], "ms": ms, "count": n} for k, (ms, n) in top])
+        top_kernels=[{"name": k[:100], "ms": ms, "count": n} for k, (ms, n) in top],
+        port_kernels=[{"name": k[:100], "ms": ms, "count": n}
+                      for k, (ms, n) in sorted(port.items(), key=lambda kv: -kv[1][0])])
     return info
 
 

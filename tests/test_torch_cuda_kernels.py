@@ -45,6 +45,51 @@ def test_mask_pool(dev, dtype, nchw):
     assert torch.equal(got, again)
 
 
+def _check_mask_pool(logits, feats):
+    """rtol 1e-5 of sum |feat| over each mask, and equal bits twice."""
+    got = mask_pool.masked_pool(logits, feats)
+    again = mask_pool.masked_pool(logits, feats)
+    want = mask_pool.mask_pool_plain(logits, feats)
+    hard = (torch.sigmoid(logits.float()) > 0.5).float()
+    bound = 1e-5 * torch.einsum("bnhw,bhwc->bnc", hard, feats.float().abs()) + 1e-6
+    assert ((got - want).abs() <= bound).all()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n", [(1, 100), (1, 111), (2, 111)])
+def test_mask_pool_main_shapes(dev, dtype, b, n):
+    """The serving and training shapes: 1024x2048 / 8 masks over 256 NCHW
+    channels (the 16-byte vector path, split over HW across the SMs)."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    logits = torch.randn((b, n, 128, 256), generator=g, device=dev).to(dtype)
+    feats = torch.randn((b, 256, 128, 256), generator=g, device=dev).to(dtype)
+    before = mask_pool.KERNEL.launches
+    _check_mask_pool(logits, feats.permute(0, 2, 3, 1))
+    assert mask_pool.KERNEL.launches == before + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mask_pool_unaligned(dev, dtype):
+    """Storage that starts one element off a 16-byte boundary takes the
+    kernel's predicated scalar path."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    lg = torch.randn((1 + 111 * 64 * 128,), generator=g, device=dev).to(dtype)
+    ft = torch.randn((1 + 256 * 64 * 128,), generator=g, device=dev).to(dtype)
+    logits = lg[1:].view(1, 111, 64, 128)
+    feats = ft[1:].view(1, 256, 64, 128).permute(0, 2, 3, 1)
+    assert logits.data_ptr() % 16 and feats.data_ptr() % 16
+    _check_mask_pool(logits, feats)
+
+
+@pytest.mark.parametrize("shape,f", [((111, 128, 256), 2), ((1, 256, 512), 4)])
+def test_upsample_main_shapes_bit_equal(dev, shape, f):
+    x = torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(10), device=dev)
+    before = upsample2.KERNEL.launches
+    assert torch.equal(upsample2.upsample_int(x, f), upsample2.upsample_int_plain(x, f, f))
+    assert upsample2.KERNEL.launches == before + 1
+
+
 @pytest.mark.parametrize("fy,fx", [(2, 2), (4, 4), (3, 2), (1, 4)])
 def test_upsample_bit_equal(dev, fy, fx):
     x = torch.randn((3, 13, 29), generator=torch.Generator(device=dev).manual_seed(1),

@@ -1,0 +1,154 @@
+"""What the port's K1 and K2 wrappers hand their CUDA kernels, checked on
+the CPU: K2's phase weights against the JAX package's, K1's launch plan,
+K1's threshold band, and a numpy mirror of K1's exact three-way bf16 split
+of f32 features (pooling with it against JAX ``masked_pool``).  No card, no
+compile."""
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from polyphonicformer_tpu.ops.pallas.mask_pool import masked_pool as jax_masked_pool
+from polyphonicformer_tpu.ops.resize import _phase_weights
+from polyphonicformer_torch.ops.cuda import mask_pool, upsample2
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("factor", range(1, 9))
+def test_phase_weights_bit_equal_to_jax(factor):
+    """The table of ``phase_weights`` and the host arrays the K2 launch
+    passes (``_phase_args``) equal JAX ``_phase_weights`` bit for bit."""
+    weights, base = _phase_weights(factor)
+    table = upsample2.phase_weights(factor)
+    assert [b for b, _, _ in table] == base.tolist()
+    got = np.array([[w0, w1] for _, w0, w1 in table], dtype=np.float32)
+    assert got.tobytes() == weights.tobytes()
+    bases, pairs = upsample2._phase_args(factor)
+    assert list(bases) == base.tolist()
+    assert np.array(list(pairs), dtype=np.float32).tobytes() == weights.reshape(-1).tobytes()
+
+
+@pytest.mark.parametrize("b,n,hw,c", [
+    (1, 111, 128 * 256, 256),  # each stage, serving and training
+    (1, 100, 128 * 256, 256),  # the rpn head
+    (2, 111, 128 * 256, 256),  # the batched Swin-L step over 2 clips
+    (2, 37, 19 * 45, 70),      # the card test's ragged shape
+    (1, 300, 100, 513),        # several row tiles and channel slices
+    (3, 5, 7, 3),              # less than one stage of HW
+    (1, 1, 64 * 1000 + 1, 1),  # one position past a whole stage
+])
+def test_mask_pool_launch_plan(b, n, hw, c):
+    """The splits cover HW exactly in whole stages; the grid lies inside
+    CUDA's limits, and with more than one split holds no more blocks than
+    the card has SMs (one block fills an SM)."""
+    plan = mask_pool.launch_plan(b, n, hw, c, H100_SMS)
+    assert plan.chunk % mask_pool.DEPTH == 0 and plan.chunk > 0
+    assert (plan.splits - 1) * plan.chunk < hw <= plan.splits * plan.chunk
+    gx, gy, gz = plan.grid
+    assert gx * mask_pool.CHANNELS >= c > (gx - 1) * mask_pool.CHANNELS
+    assert gz == b * plan.row_tiles and plan.row_tiles * mask_pool.ROWS >= n
+    assert 1 <= gx < 2 ** 31 and 1 <= gy <= 65535 and 1 <= gz <= 65535
+    if plan.splits > 1:
+        assert gx * gy * gz <= H100_SMS
+    if hw >= 128 * 256:  # the main path fills at least half the SMs
+        assert gx * gy * gz >= H100_SMS // 2
+
+
+def test_mask_pool_launch_plan_main_shape():
+    """At (1, 111, 128x256, 256): 2 channel slices x 64 chunks of 512."""
+    plan = mask_pool.launch_plan(1, 111, 128 * 256, 256, H100_SMS)
+    assert (plan.grid, plan.chunk) == ((2, 64, 1), 512)
+
+
+def _bf16(x: np.ndarray) -> np.ndarray:
+    """f32 -> bf16 with round-to-nearest-even, kept in f32 (the kernel's
+    __float2bfloat16_rn for finite values)."""
+    u = x.astype(np.float32).view(np.uint32)
+    u = (u + (((u >> 16) & 1) + np.uint32(0x7FFF))) & np.uint32(0xFFFF0000)
+    return u.view(np.float32)
+
+
+def _split3(x: np.ndarray):
+    """The kernel's split of f32 features: hi = bf16(x), mid = bf16(x - hi),
+    lo = bf16(x - hi - mid), each difference an exact f32 subtraction."""
+    hi = _bf16(x)
+    r1 = (x - hi).astype(np.float32)
+    mid = _bf16(r1)
+    lo = _bf16((r1 - mid).astype(np.float32))
+    return hi, mid, lo
+
+
+def _values(seed: int) -> np.ndarray:
+    rng = np.random.RandomState(seed)
+    mags = 10.0 ** rng.uniform(-30, 30, size=20000)
+    x = (mags * rng.choice([-1.0, 1.0], size=mags.shape)).astype(np.float32)
+    x[:8] = [0.0, -0.0, 1e-30, -1e-30, 1e30, -1e30, 1.0, -3.0]
+    return x
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_split_reconstructs_f32(seed):
+    """hi + mid + lo == x exactly (summed in f64 and in f32 in the
+    kernel's order), for both signs, zeros and magnitudes 1e-30 to 1e30;
+    each part is a bf16 value, and the rounding mirror agrees with
+    torch's bf16 conversion."""
+    x = _values(seed)
+    hi, mid, lo = _split3(x)
+    for part in (hi, mid, lo):
+        assert (_bf16(part) == part).all()
+    assert (hi.astype(np.float64) + mid + lo == x.astype(np.float64)).all()
+    assert (((hi + mid).astype(np.float32) + lo).astype(np.float32) == x).all()
+    want = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+    assert (_bf16(x) == want).all()
+
+
+@pytest.mark.parametrize("seed,shape", [(0, (1, 23, 8, 16, 24)), (1, (2, 31, 16, 32, 64))])
+def test_split_pool_matches_jax(seed, shape):
+    """Pooling f32 features as the kernel does (a 0/1 mask times each of
+    the three bf16 parts, summed into f32) against JAX ``masked_pool``
+    (its reference einsum on the CPU), within rtol 1e-5 of sum |feat| over
+    each mask.  Feature magnitudes span 1e-3 to 1e3."""
+    b, n, h, w, c = shape
+    rng = np.random.RandomState(seed)
+    logits = rng.randn(b, n, h, w).astype(np.float32)
+    logits[0, 0, 0, :4] = [1e-9, -1e-9, 0.0, 3e-8]  # the f32 sigmoid rounds to 0.5
+    feats = (rng.randn(b, h, w, c) * 10.0 ** rng.uniform(-3, 3, (b, h, w, c))).astype(np.float32)
+    want = np.asarray(jax_masked_pool(jnp.asarray(logits), jnp.asarray(feats)))
+    sig = (np.float32(1.0) / (np.float32(1.0) + np.exp(-logits))).astype(np.float32)
+    hard = (sig > np.float32(0.5)).astype(np.float32).reshape(b, n, h * w)
+    got = np.zeros((b, n, c), dtype=np.float32)
+    for part in _split3(feats.reshape(b, h * w, c)):
+        got = (got + np.matmul(hard, part)).astype(np.float32)
+    bound = 1e-5 * np.einsum("bnk,bkc->bnc", hard, np.abs(feats.reshape(b, h * w, c))) + 1e-6
+    assert (np.abs(got - want) <= bound).all()
+    assert (hard[0, 0, :4] == [0, 0, 0, 0]).all()
+
+
+@pytest.mark.parametrize("thr", [0.5, 0.3, 0.9, 0.05])
+def test_threshold_band_decides_as_the_sigmoid(thr):
+    """Outside K1's band (lo, hi) the compare x >= hi gives the same bit as
+    the f32 ``1 / (1 + exp(-x)) > thr``, for x crowded around the band's
+    edges and spread over [-100, 100]; the ends are bf16 values, and
+    logit(thr) lies inside the band."""
+    lo, hi = mask_pool.threshold_band(thr)
+    assert torch.tensor([lo, hi]).to(torch.bfloat16).double().tolist() == [lo, hi]
+    mid = np.log(thr / (1.0 - thr))
+    assert lo < mid < hi
+    assert hi - lo < 4e-5 / (thr * (1 - thr)) + 2.0 ** -6 * max(1.0, abs(mid))
+    rng = np.random.RandomState(0)
+    x = np.concatenate([
+        lo + rng.uniform(-1e-4, 1e-4, 20000), hi + rng.uniform(-1e-4, 1e-4, 20000),
+        rng.uniform(-100, 100, 20000)]).astype(np.float32)
+    x = np.concatenate([x, np.nextafter(np.float32([lo, hi]), np.float32([-np.inf, np.inf]))])
+    with np.errstate(over="ignore"):
+        exact = np.float32(1.0) / (np.float32(1.0) + np.exp(-x)) > np.float32(thr)
+    outside = (x <= lo) | (x >= hi)
+    assert outside.sum() > 30000
+    assert (exact[outside] == (x[outside] >= hi)).all()
+
+
+def test_threshold_band_none_near_the_ends():
+    for thr in (0.0, 1.0, 5e-6, 1 - 5e-6):
+        assert mask_pool.threshold_band(thr) == (-np.inf, np.inf)

@@ -19,6 +19,9 @@ def test_busy_is_the_union_of_intervals(intervals, want):
 @pytest.mark.parametrize("name,cls", [
     ("(anonymous namespace)::mask_loss_bwd(float const*, ...)", "port"),
     ("upsample_int_fwd(float const*, float*, long long, int, int, int, int)", "port"),
+    ("void (anonymous namespace)::mask_pool_mma<__nv_bfloat16, float>((anonymous namespace)::Params)",
+     "port"),
+    ("void (anonymous namespace)::upsample_int_fwd<2, 2>((anonymous namespace)::UpArgs)", "port"),
     ("void (anonymous namespace)::window_attn_kernel<__nv_bfloat16, true>(...)", "port"),
     ("sm90_xmma_fprop_implicit_gemm_f32f32_tf32f32_f32_nhwckrsc_nhwc", "convolution"),
     ("cutlass_80_simt_sgemm_128x128_8x4_nn_align1", "matmul"),
