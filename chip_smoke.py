@@ -3,9 +3,11 @@
     python3 chip_smoke.py
 
 Phases: (1) the device; (2) the build of the hand-written kernels from
-``polyphonicformer_torch/csrc``; (3) each kernel against its plain PyTorch
-version at the shapes the serving and training paths give it, timed beside
-the plain version and, where one PyTorch call computes the same function,
+``polyphonicformer_torch/csrc``, and their tensor-core instructions in
+``cuobjdump -sass`` (the bf16 K7/K8 and K1 must have some); (3) each
+kernel against its plain PyTorch version at the shapes the serving and
+training paths give it, timed beside the plain version and, where one
+PyTorch call computes the same function,
 that call, with the least time the card could take (bytes over 3.35 TB/s or
 operations over the peak of their type, whichever is larger); (4) the R50
 video serving path (``video_r50_1x``, seeded random weights) on an 8-frame
@@ -51,6 +53,27 @@ def _nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def _tensor_core_ops(so_path) -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) per kernel of the built
+    library, from ``cuobjdump -sass``; kernels without any are left out."""
+    import os
+    import re
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(so_path)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+        elif fn and re.search(r"\b(HMMA|HGMMA)\b", line):
+            short = re.search(r"\d+((?:window_attn|mask_pool)_(?:mma|sum)\w*)", fn)
+            key = short.group(1).split("Ev")[0] if short else fn
+            counts[key] = counts.get(key, 0) + 1
+    return counts
 
 
 SLEEP_CYCLES = 2_000_000  # ~1 ms of device clock queued ahead of each timed call
@@ -225,16 +248,19 @@ def check_kernels(dev, gen) -> list[dict]:
 
 
 def check_swin_kernels(dev, gen) -> list[dict]:
-    """Phase 3, Swin-L shapes of one 1024x2048 bf16 frame: K8 at stage 0
-    (259x518 padded, 2,738 windows, 6 heads, C 192) with the shift mask and
-    without, K7 at stage 2 (70x133, 190 windows, 24 heads, C 768) with the
-    mask.  Tolerance: within one bf16 spacing (ulp) of the output
-    everywhere, as one flipped output rounding; K7's rounding of P to bf16
-    leaves no more room (without it, outputs move by up to hundreds of
-    ulps).  Library:
-    ``F.scaled_dot_product_attention`` with ``attn_mask = bias + mask`` on
-    the partitioned (windows, heads, 49, 32) tensors (the partition and the
-    mask sum are outside the timed call)."""
+    """Phase 3, every Swin-L shape of one 1024x2048 bf16 frame, each with the
+    shift mask and without: K8 at stage 0 (259x518 padded, 2,738 windows, 6
+    heads, C 192) and stage 1 (133x259, 703 windows, 12 heads, C 384), K7 at
+    stage 2 (70x133, 190 windows, 24 heads, C 768) and stage 3 (35x70, 50
+    windows, 48 heads, C 1536).  Tolerance: within one bf16 spacing (ulp) of
+    the output everywhere, as one flipped output rounding; K7's rounding of
+    P to bf16 leaves no more room (without it, outputs move by up to
+    hundreds of ulps).  Library: ``F.scaled_dot_product_attention`` with
+    ``attn_mask = bias + mask`` on the partitioned (windows, heads, 49, 32)
+    tensors (the partition and the mask sum are outside the timed call).
+    Each row times the kernel, its plain version and the library call with
+    the mask (``ms``, ...) and without (``ms_no_mask``, ...), each beside its
+    own bound."""
     import torch
     from torch.nn import functional as F
 
@@ -269,47 +295,45 @@ def check_swin_kernels(dev, gen) -> list[dict]:
     def flops(nw, heads, hd):
         return 4.0 * nw * heads * l * l * hd  # QK^T and PV, 2 operations a multiply-add
 
-    rows = []
-    # K8 at stage 0
-    c, heads = 192, 6
-    qkv, bias, mask = inputs(259, 518, c, heads)
-    err, timed = 0.0, {}
-    for tag, m in (("", mask), ("_no_mask", None)):
-        got = window_attn.window_attention(qkv, bias, m, heads, ws)
-        want = window_attn.window_attention_plain(qkv, bias, m, heads, ws)
-        err = max(err, checked(f"window_attention{tag}", got, want))
-        del want
-        args = sdpa_args(window_partition(qkv, ws), c, heads, bias, m)
-        timed[f"ms{tag}"] = _time_ms(lambda: window_attn.window_attention(qkv, bias, m, heads, ws))
-        timed[f"plain_ms{tag}"] = _time_ms(
-            lambda: window_attn.window_attention_plain(qkv, bias, m, heads, ws), reps=5)
-        timed[f"library_ms{tag}"] = _time_ms(lambda: F.scaled_dot_product_attention(*args[:3],
-                                                                                   attn_mask=args[3]))
-        del args
-    nw = got.shape[1] * got.shape[2] // l
-    rows.append(dict(
-        name="window_attention", route="cuda", source="polyphonicformer_torch/csrc/window_attn.cu",
-        replaces="polyphonicformer_tpu/ops/pallas/window_attn.py:84", max_abs_err=err, **timed,
-        **_bound(_nbytes(qkv, bias, mask, got), flops(nw, heads, c // heads), "bf16"),
-        shape=f"qkv {tuple(qkv.shape)} bf16, mask {tuple(mask.shape)} f32"))
+    def row(name, kernel, replaces, stage, hp, wp, c, heads, image: bool):
+        """One kernel at one stage: checked and timed with the mask and
+        without.  K8 takes the image, K7 its partitioned windows."""
+        qkv_img, bias, mask = inputs(hp, wp, c, heads)
+        x = qkv_img if image else window_partition(qkv_img, ws).contiguous()
+        if image:
+            run = lambda m: window_attn.window_attention(x, bias, m, heads, ws)  # noqa: E731
+            plain = lambda m: window_attn.window_attention_plain(x, bias, m, heads, ws)  # noqa: E731
+        else:
+            run = lambda m: window_attn.window_attn_math(x, bias, m, heads)  # noqa: E731
+            plain = lambda m: window_attn.window_attn_math_plain(x, bias, m, heads)  # noqa: E731
+        nw = (hp // ws) * (wp // ws)
+        err, timed = 0.0, {}
+        for tag, m in (("", mask), ("_no_mask", None)):
+            got = run(m)
+            want = plain(m)
+            err = max(err, checked(f"{name}{tag}", got, want))
+            del want
+            args = sdpa_args(window_partition(qkv_img, ws), c, heads, bias, m)
+            timed[f"ms{tag}"] = _time_ms(lambda: run(m))
+            timed[f"plain_ms{tag}"] = _time_ms(lambda: plain(m), reps=5)
+            timed[f"library_ms{tag}"] = _time_ms(
+                lambda: F.scaled_dot_product_attention(*args[:3], attn_mask=args[3]))
+            del args
+            bound = _bound(_nbytes(x, bias, got, *([] if m is None else [m])),
+                           flops(nw, heads, c // heads), "bf16")
+            timed.update({f"{k}{tag}": v for k, v in bound.items()})
+        return dict(
+            name=name, kernel=kernel, route="cuda",
+            source="polyphonicformer_torch/csrc/window_attn.cu", replaces=replaces,
+            max_abs_err=err, **timed,
+            shape=f"stage {stage}: qkv {tuple(x.shape)} bf16, mask {tuple(mask.shape)} f32")
 
-    # K7 at stage 2
-    c, heads = 768, 24
-    qkv_img, bias, mask = inputs(70, 133, c, heads)
-    qkv = window_partition(qkv_img, ws).contiguous()
-    got = window_attn.window_attn_math(qkv, bias, mask, heads)
-    want = window_attn.window_attn_math_plain(qkv, bias, mask, heads)
-    err = checked("window_attn_math", got, want)
-    args = sdpa_args(qkv, c, heads, bias, mask)
-    rows.append(dict(
-        name="window_attn_math", route="cuda", source="polyphonicformer_torch/csrc/window_attn.cu",
-        replaces="polyphonicformer_tpu/ops/pallas/win_attn_math.py:78", max_abs_err=err,
-        ms=_time_ms(lambda: window_attn.window_attn_math(qkv, bias, mask, heads)),
-        plain_ms=_time_ms(lambda: window_attn.window_attn_math_plain(qkv, bias, mask, heads)),
-        library_ms=_time_ms(lambda: F.scaled_dot_product_attention(*args[:3], attn_mask=args[3])),
-        **_bound(_nbytes(qkv, bias, mask, got), flops(qkv.shape[0], heads, c // heads), "bf16"),
-        shape=f"qkv {tuple(qkv.shape)} bf16, mask {tuple(mask.shape)} f32"))
-    return rows
+    k8 = "polyphonicformer_tpu/ops/pallas/window_attn.py:84"
+    k7 = "polyphonicformer_tpu/ops/pallas/win_attn_math.py:78"
+    return [row("window_attention", "window_attention", k8, 0, 259, 518, 192, 6, True),
+            row("window_attention_stage1", "window_attention", k8, 1, 133, 259, 384, 12, True),
+            row("window_attn_math", "window_attn_math", k7, 2, 70, 133, 768, 24, False),
+            row("window_attn_math_stage3", "window_attn_math", k7, 3, 35, 70, 1536, 48, False)]
 
 
 def check_train_kernels(dev, gen) -> list[dict]:
@@ -429,6 +453,13 @@ def main() -> int:
              else f"nvcc {_lib.build_seconds:.2f} s")
     print(f"[2 build] {_lib.library_path().name}: {built}, "
           f"build and load {time.perf_counter() - t0:.2f} s", flush=True)
+    # the bf16 window-attention kernels (K7, K8: head dims rounded up to 16, 32,
+    # 48, 64) and K1 run on the tensor cores
+    tc = _tensor_core_ops(_lib.library_path())
+    wa = {k: n for k, n in tc.items() if k.startswith("window_attn_mma_kernel")}
+    _check("tensor cores", len(wa) == 8 and min(wa.values()) > 0
+           and any(k.startswith("mask_pool") for k in tc), f"HMMA/HGMMA per kernel {tc}")
+    print(f"[2 build] tensor-core instructions (cuobjdump -sass): {json.dumps(tc)}", flush=True)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)

@@ -12,12 +12,15 @@
   to f32 first, the probabilities kept in f32, one cast at the end.
 
 Both CUDA kernels are ``csrc/window_attn.cu`` (the source note there gives
-the bound and design).  A CUDA tensor launches the kernel; a CPU tensor
-takes the plain version beside it, which repeats that kernel's arithmetic.
+the bound and design: for bf16 qkv both products on the tensor cores, f32
+qkv on the CUDA cores).  A CUDA tensor launches the kernel; a CPU tensor
+takes the plain version beside it, the same function in f32 PyTorch ops.
 Serving only: the JAX package differentiates a plain recompute, and the
 Swin train step is not ported.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -25,14 +28,47 @@ from . import _lib
 
 KERNEL_MATH = _lib.Kernel("poly_window_attn_math", [
     _lib.P, _lib.I32, _lib.P, _lib.P, _lib.P, _lib.I64, _lib.I32, _lib.I32, _lib.I32,
-    _lib.I32, _lib.F32])
+    _lib.I32, _lib.F32, _lib.I32, _lib.I32, _lib.I32, _lib.I32])
 KERNEL_IMAGE = _lib.Kernel("poly_window_attention", [
     _lib.P, _lib.I32, _lib.P, _lib.P, _lib.P, _lib.I32, _lib.I32, _lib.I32, _lib.I32,
-    _lib.I32, _lib.I32, _lib.F32])
+    _lib.I32, _lib.I32, _lib.F32, _lib.I32, _lib.I32, _lib.I32, _lib.I32])
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_MAX_L = 64  # tokens per window (csrc/window_attn.cu: two softmax columns a lane)
+_MAX_L = 64  # tokens per window (csrc/window_attn.cu: 8 key tiles, two softmax columns a lane)
 _MAX_HD = 64  # head dim (shared memory of one block)
+GROUP_CHANNELS = 64  # channels of a bf16 block (head dims rounded up to 16)
+MAX_WARPS = 8  # warps of a bf16 block, one per (head, 16-row query strip)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """A launch of the bf16 kernel: ``group`` heads per block, shared rows
+    of ``pitch`` bf16 elements, ``smem`` bytes and ``warps`` warps a block,
+    ``grid`` (windows, head groups)."""
+    group: int
+    pitch: int
+    smem: int
+    warps: int
+    grid: tuple[int, int]
+
+
+def launch_plan(nwin: int, heads: int, hd: int, l: int, masked: bool) -> Plan:
+    """The bf16 kernel's launch for ``nwin`` windows of ``l`` tokens and
+    ``heads`` heads of ``hd``: the most heads per block that divide
+    ``heads`` within GROUP_CHANNELS channels and MAX_WARPS warps (at least
+    one).  A head takes a slot of hd rounded up to 16 channels; a row of the
+    Q, K and V tiles is the group's slots and 8 elements more (16 bytes, so
+    the 8 rows of an ldmatrix fall in distinct banks).  Shared memory: the
+    three tiles of 64 rows, the group's f32 bias tiles, the f32 mask tile,
+    64 floats a warp (``csrc/window_attn.cu::mma_smem``)."""
+    hd16 = -(-hd // 16) * 16
+    strips = -(-l // 16)
+    group = max(g for g in range(1, heads + 1) if heads % g == 0 and (
+        g == 1 or (g * hd16 <= GROUP_CHANNELS and g * strips <= MAX_WARPS)))
+    pitch = group * hd16 + 8
+    warps = group * strips
+    smem = 3 * 64 * pitch * 2 + 4 * group * l * l + (4 * l * l if masked else 0) + 4 * 64 * warps
+    return Plan(group, pitch, smem, warps, (nwin, heads // group))
 
 
 def _scale(hd: int) -> float:
@@ -112,6 +148,18 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
+def _plan_args(qkv, nwin: int, num_heads: int, c: int, l: int, masked: bool) -> tuple:
+    """(group, pitch, smem, vec) of the bf16 launch, vec: 16-byte loads and
+    stores (head dim and C multiples of 8, qkv 16-byte aligned); unused for
+    f32."""
+    if qkv.dtype != torch.bfloat16:
+        return 0, 0, 0, 0
+    hd = c // num_heads
+    plan = launch_plan(nwin, num_heads, hd, l, masked)
+    vec = hd % 8 == 0 and c % 8 == 0 and qkv.data_ptr() % 16 == 0
+    return plan.group, plan.pitch, plan.smem, int(vec)
+
+
 def window_attn_math(qkv: torch.Tensor, bias: torch.Tensor, mask: torch.Tensor | None,
                      num_heads: int) -> torch.Tensor:
     """K7.  qkv (nw, L, 3C) f32 or bf16; bias (heads, L, L) f32; mask
@@ -126,7 +174,8 @@ def window_attn_math(qkv: torch.Tensor, bias: torch.Tensor, mask: torch.Tensor |
     out = torch.empty((nw, l, c), dtype=qkv.dtype, device=qkv.device)
     KERNEL_MATH.launch(qkv.data_ptr(), int(qkv.dtype == torch.bfloat16), bias.data_ptr(),
                        _ptr(mask), out.data_ptr(), nw, l, c, num_heads, ntypes,
-                       _scale(c // num_heads))
+                       _scale(c // num_heads),
+                       *_plan_args(qkv, nw, num_heads, c, l, mask is not None))
     return out
 
 
@@ -144,9 +193,11 @@ def window_attention(qkv: torch.Tensor, bias: torch.Tensor, mask: torch.Tensor |
     if hp % ws or wp % ws:
         raise ValueError(f"qkv: {hp}x{wp} is not a multiple of the window {ws}")
     per_image = (hp // ws) * (wp // ws)
-    c, _ = _check(qkv, bias, mask, num_heads, ws * ws, lambda n: n == per_image)
+    l = ws * ws
+    c, _ = _check(qkv, bias, mask, num_heads, l, lambda n: n == per_image)
     out = torch.empty((b, hp, wp, c), dtype=qkv.dtype, device=qkv.device)
     KERNEL_IMAGE.launch(qkv.data_ptr(), int(qkv.dtype == torch.bfloat16), bias.data_ptr(),
                         _ptr(mask), out.data_ptr(), b, hp, wp, c, num_heads, ws,
-                        _scale(c // num_heads))
+                        _scale(c // num_heads),
+                        *_plan_args(qkv, b * per_image, num_heads, c, l, mask is not None))
     return out

@@ -285,18 +285,28 @@ def _attn_close(got, want):
     assert ((got - want).abs() <= torch.ldexp(torch.ones_like(got), e - 8)).all()
 
 
+# K7: (windows, mask types, heads, ws, hd): two images of 35 windows, ws 8 /
+# hd 64 being the largest window and head the kernels take; then Swin-L stages
+# 2 and 3 of a 1024x2048 frame
+K7_SHAPES = [(70, 35, 3, 7, 32), (70, 35, 3, 8, 64), (190, 190, 24, 7, 32), (50, 50, 48, 7, 32)]
+# K8: (images, Hp, Wp, heads, ws, hd): two 14x63 images (18 windows each),
+# two 16x64 images at ws 8 / hd 64; then Swin-L stages 0 and 1
+K8_SHAPES = [(2, 14, 63, 3, 7, 32), (2, 16, 64, 3, 8, 64), (1, 259, 518, 6, 7, 32),
+             (1, 133, 259, 12, 7, 32)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("ws,hd", [(7, 32), (8, 64)])
-def test_window_attn_math(dev, dtype, masked, ws, hd):
-    """K7 against its plain version: 70 windows of two images (mask of 35
-    window types); ws 8 / hd 64 is the largest window and head the kernel
-    takes (over 48 KB of shared memory)."""
+@pytest.mark.parametrize("nw,ntypes,heads,ws,hd", K7_SHAPES)
+def test_window_attn_math(dev, dtype, masked, nw, ntypes, heads, ws, hd):
+    """K7 against its plain version, a random mask of ``ntypes`` window
+    types; the small shapes need over 48 KB of shared memory at ws 8."""
     g = torch.Generator(device=dev).manual_seed(8)
-    heads, l = 3, ws * ws
-    qkv = torch.randn((70, l, 3 * heads * hd), generator=g, device=dev).to(dtype)
+    l = ws * ws
+    qkv = torch.randn((nw, l, 3 * heads * hd), generator=g, device=dev).to(dtype)
     bias = torch.randn((heads, l, l), generator=g, device=dev) * 0.5
-    mask = ((torch.rand((35, l, l), generator=g, device=dev) < 0.3) * -100.0) if masked else None
+    mask = ((torch.rand((ntypes, l, l), generator=g, device=dev) < 0.3) * -100.0
+            if masked else None)
     before = window_attn.KERNEL_MATH.launches
     got = window_attn.window_attn_math(qkv, bias, mask, heads)
     assert window_attn.KERNEL_MATH.launches == before + 1
@@ -306,21 +316,49 @@ def test_window_attn_math(dev, dtype, masked, ws, hd):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("masked", [False, True])
-def test_window_attention(dev, dtype, masked):
-    """K8 against its plain version on two 14x63 images, the shift mask of
-    their 18 windows."""
+@pytest.mark.parametrize("b,hp,wp,heads,ws,hd", K8_SHAPES)
+def test_window_attention(dev, dtype, masked, b, hp, wp, heads, ws, hd):
+    """K8 against its plain version, the shift mask of the images' windows."""
     from polyphonicformer_torch.models.swin import _shift_attn_mask
 
     g = torch.Generator(device=dev).manual_seed(9)
-    heads, hd, ws = 3, 32, 7
-    qkv = torch.randn((2, 14, 63, 3 * heads * hd), generator=g, device=dev).to(dtype)
-    bias = torch.randn((heads, 49, 49), generator=g, device=dev) * 0.5
-    mask = torch.from_numpy(_shift_attn_mask(14, 63, ws, 3)).to(dev) if masked else None
+    l = ws * ws
+    qkv = torch.randn((b, hp, wp, 3 * heads * hd), generator=g, device=dev).to(dtype)
+    bias = torch.randn((heads, l, l), generator=g, device=dev) * 0.5
+    mask = torch.from_numpy(_shift_attn_mask(hp, wp, ws, ws // 2)).to(dev) if masked else None
     before = window_attn.KERNEL_IMAGE.launches
     got = window_attn.window_attention(qkv, bias, mask, heads, ws)
     assert window_attn.KERNEL_IMAGE.launches == before + 1
     want = window_attn.window_attention_plain(qkv, bias, mask, heads, ws)
     _attn_close(got, want)
+
+
+# bf16 (window, head dim) under 33 tokens or off 32 and 64: head slots padded
+# to 16 channels; head dim 12 takes the kernel's 2-byte loads
+ODD_SHAPES = [(4, 16), (5, 8), (3, 12), (6, 40), (4, 24)]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("ws,hd", ODD_SHAPES)
+def test_window_attn_bf16_odd_shapes(dev, masked, ws, hd):
+    """K8 on two images of 3x4 windows, K7 on their windows, and K8 on a qkv
+    that is not 16-byte aligned, each against its plain version."""
+    from polyphonicformer_torch.models.swin import _shift_attn_mask, window_partition
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    heads, l, hp, wp = 2, ws * ws, 3 * ws, 4 * ws
+    qkv = torch.randn((2, hp, wp, 3 * heads * hd), generator=g, device=dev).to(torch.bfloat16)
+    bias = torch.randn((heads, l, l), generator=g, device=dev) * 0.5
+    mask = torch.from_numpy(_shift_attn_mask(hp, wp, ws, ws // 2)).to(dev) if masked else None
+    _attn_close(window_attn.window_attention(qkv, bias, mask, heads, ws),
+                window_attn.window_attention_plain(qkv, bias, mask, heads, ws))
+    win = window_partition(qkv, ws).contiguous()
+    _attn_close(window_attn.window_attn_math(win, bias, mask, heads),
+                window_attn.window_attn_math_plain(win, bias, mask, heads))
+    shifted = torch.empty(qkv.numel() + 1, dtype=qkv.dtype, device=dev)[1:].view(qkv.shape)
+    shifted.copy_(qkv)
+    _attn_close(window_attn.window_attention(shifted, bias, mask, heads, ws),
+                window_attn.window_attention_plain(qkv, bias, mask, heads, ws))
 
 
 def test_window_attn_wrappers_refuse(dev):
