@@ -9,12 +9,17 @@ kernel against its plain PyTorch version at the shapes the serving and
 training paths give it, timed beside the plain version and, where one
 PyTorch call computes the same function,
 that call, with the least time the card could take (bytes over 3.35 TB/s or
-operations over the peak of their type, whichever is larger); (4) the R50
+operations over the peak of their type, whichever is larger), and the
+gradients of K7 and K8 at Swin-L stage shapes against the plain versions'
+autograd; (4) the R50
 video serving path (``video_r50_1x``, seeded random weights) on an 8-frame
 1024x2048 clip in bf16 through ``clip_video_step``; (5) the image-model
 train step (``image_r50_2x``, seeded random weights) at 1024x2048, batch 1,
 f32, through ``create_train_state`` and ``make_train_step`` for 3 steps,
-then a debug-size step on the card against the same step on the CPU; (6)
+then a debug-size step on the card against the same step on the CPU, and a
+debug-size ``swin_tiny`` step whose gradients on the card (through K7 and
+K8) are held to the same step in f64 on the CPU and to the card's plain
+route; (6)
 the Swin-L video serving path (``video_swinl``, seeded random weights, bf16)
 on an 8-frame 1024x2048 clip through ``make_clip_step``, then 3 steps of
 ``make_batched_video_step`` over 2 clips, then a debug-size ``swin_tiny``
@@ -33,7 +38,17 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}  # dense tensor-core bf16, f32 without
+# dense tensor-core bf16, f32 FMAs without (2 operations a lane and clock), and
+# one f32-pipe instruction a lane and clock (132 SMs x 128 lanes x 1.98 GHz,
+# half the FMA rate): the rate of K3's exact merge, whose separately rounded
+# multiplies and adds cannot fuse into FMAs
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12, "f32_issue": 33.5e12}
+# K3's f32-pipe instructions per output pixel and candidate row, counted from
+# csrc/phase_fusion.cu: the horizontal lerp with its products shared between
+# phases (2.5), the share of the vertical lerps (2.25), the score multiply,
+# the argmax's compare and select (a folded row: a compare), the >= 0.5
+# compare of a full row
+K3_INSTR_FULL, K3_INSTR_FOLDED = 8.75, 6.75
 
 
 def _bound(nbytes: float, ops: float = 0.0, kind: str = "f32") -> dict:
@@ -214,10 +229,12 @@ def check_kernels(dev, gen) -> list[dict]:
                f"max err {float(diff.max())}")
         err = max(err, float(diff.max()))
     outs = phase_fusion.phase_fusion(probs, scores, depth, 4, 4, n_full=64)
+    kpad, nf, _ = phase_fusion._rows(probs.shape[0], 64)
+    ops = outs[0].numel() * (nf * K3_INSTR_FULL + (kpad - nf) * K3_INSTR_FOLDED)
     rows.append(dict(
         name="phase_fusion", route="cuda", source="polyphonicformer_torch/csrc/phase_fusion.cu",
         replaces="polyphonicformer_tpu/ops/pallas/phase_fusion.py:126", max_abs_err=err,
-        library_ms=None, **_bound(_nbytes(probs, scores, depth, *outs)),
+        library_ms=None, **_bound(_nbytes(probs, scores, depth, *outs), ops, "f32_issue"),
         ms=_time_ms(lambda: phase_fusion.phase_fusion(probs, scores, depth, 4, 4, n_full=64)),
         plain_ms=_time_ms(lambda: phase_fusion.phase_fusion_plain(
             probs, scores, depth, 4, 4, n_full=64), reps=5)))
@@ -334,6 +351,57 @@ def check_swin_kernels(dev, gen) -> list[dict]:
             row("window_attention_stage1", "window_attention", k8, 1, 133, 259, 384, 12, True),
             row("window_attn_math", "window_attn_math", k7, 2, 70, 133, 768, 24, False),
             row("window_attn_math_stage3", "window_attn_math", k7, 3, 35, 70, 1536, 48, False)]
+
+
+GRAD_RTOL = 1e-5  # K7/K8 gradients: same VJP, sums possibly in another order
+
+
+def check_window_grads(dev, gen) -> dict:
+    """Phase 3: K8 at Swin-L stage 0 and K7 at stage 2 (bf16 qkv, with the
+    shift mask and without) through their autograd Functions on the card
+    (forward the kernel, backward the plain version's VJP) against autograd
+    of the plain versions on the same inputs and cotangent: the output
+    carries a ``grad_fn``, and the qkv and bias gradients lie within
+    GRAD_RTOL x max |plain| of each.  Returns the worst error over max
+    |plain| per kernel."""
+    import torch
+
+    from polyphonicformer_torch.models.swin import _shift_attn_mask, window_partition
+    from polyphonicformer_torch.ops.cuda import window_attn
+
+    ws, l = 7, 49
+    worst = {}
+    for name, hp, wp, c, heads in (("window_attention", 259, 518, 192, 6),
+                                   ("window_attn_math", 70, 133, 768, 24)):
+        qkv = torch.randn((1, hp, wp, 3 * c), generator=gen, device=dev).to(torch.bfloat16)
+        bias = torch.randn((heads, l, l), generator=gen, device=dev) * 0.5
+        if name == "window_attn_math":
+            qkv = window_partition(qkv, ws).contiguous()
+            run, plain = window_attn.window_attn_math, window_attn.window_attn_math_plain
+            extra = ()
+        else:
+            run, plain = window_attn.window_attention, window_attn.window_attention_plain
+            extra = (ws,)
+        shift = torch.from_numpy(_shift_attn_mask(hp, wp, ws, 3)).to(dev)
+        for tag, mask in (("", shift), (" no mask", None)):
+            g = None
+            grads = []
+            for fn in (run, plain):
+                q = qkv.clone().requires_grad_(True)
+                b = bias.clone().requires_grad_(True)
+                y = fn(q, b, mask, heads, *extra)
+                if fn is run:
+                    _check(f"{name}{tag} grad_fn", y.grad_fn is not None, "no grad_fn")
+                if g is None:
+                    g = torch.randn(y.shape, generator=gen, device=dev).to(y.dtype)
+                y.backward(g)
+                grads.append((q.grad.float(), b.grad))
+            for leaf, got, want in zip(("qkv", "bias"), *grads):
+                rel = float((got - want).abs().max()) / float(want.abs().max())
+                _check(f"{name}{tag} d{leaf}", rel <= GRAD_RTOL, f"max err {rel} of max |plain|")
+                worst[name] = max(worst.get(name, 0.0), rel)
+            del grads, g
+    return {"max_err_of_max_plain": worst, "tolerance": GRAD_RTOL}
 
 
 def check_train_kernels(dev, gen) -> list[dict]:
@@ -464,6 +532,8 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     rows = check_kernels(dev, gen) + check_train_kernels(dev, gen) + check_swin_kernels(dev, gen)
+    print(f"[3 grad] K7/K8 gradients on the card against the plain versions' autograd: "
+          f"{json.dumps(check_window_grads(dev, gen))}", flush=True)
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"[3 kernel] {r['name']}: max_abs_err {r['max_abs_err']} | kernel {r['ms']:.4f} ms "
@@ -803,6 +873,104 @@ def check_train_reference(dev) -> dict:
     return {"max_rel_err": worst, "total_loss": mg["total_loss"]}
 
 
+SWIN_GRAD_RTOL = 1e-4  # per leaf, of max |reference grad|; losses and grad_norm relative
+
+
+def check_swin_train_reference(dev) -> dict:
+    """One debug_tiny train step with the swin_tiny backbone at 64x128 on
+    the same weights and batch four ways: on the card in f32 through K7 and
+    K8 (forward the kernels, backward their plain versions' VJP), on the
+    card with the plain versions in their place, on the CPU in f32, and on
+    the CPU in f64, the reference (parameters, image and activations in f64
+    except where the model casts to f32: LayerNorm, the attention's plain
+    version, the losses).  Checks: K7 and K8 launch; assignments equal; the
+    same parameters get a gradient; on the card through the kernels every
+    loss and the grad_norm within SWIN_GRAD_RTOL of the f64 step, and each
+    gradient (after the step's clipping) within SWIN_GRAD_RTOL x max |f64|
+    of the f64 step's and of the card's plain route's.  The f32 CPU step's
+    distance from the f64 step is reported beside them: it says whether
+    the card or the CPU departs where the two f32 steps disagree."""
+    import dataclasses
+
+    import torch
+
+    from polyphonicformer_torch.configs import preset
+    from polyphonicformer_torch.data.synthetic import synthetic_batch
+    from polyphonicformer_torch.models import build_model
+    from polyphonicformer_torch.ops.cuda import window_attn
+    from polyphonicformer_torch.train import losses
+    from polyphonicformer_torch.train.step import create_train_state, make_train_step
+
+    cfg = preset("debug_tiny")
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, backbone="swin_tiny"))
+    cpu = build_model(cfg.model, "cpu", generator=torch.Generator().manual_seed(0))
+    kernels = (window_attn.KERNEL_IMAGE, window_attn.KERNEL_MATH)
+    fwd = (window_attn._window_attn_math_fwd, window_attn._window_attention_fwd)
+
+    def step(device, dtype=torch.float32):
+        model = build_model(cfg.model, device, state_dict=cpu.state_dict())
+        state, opt = create_train_state(model, cfg, None, device=device)
+        state.model.to(dtype)
+        for st in opt.adamw.state.values():
+            st["exp_avg"], st["exp_avg_sq"] = st["exp_avg"].to(dtype), st["exp_avg_sq"].to(dtype)
+        batch = synthetic_batch(cfg.model, 1, (64, 128), seed=0, max_instances=6,
+                                device=device)
+        batch = batch._replace(image=batch.image.to(dtype))
+        with torch.no_grad():
+            asg = losses.assign(cfg.model, state.model(batch.image), batch.gt)
+        before = [k.launches for k in kernels]
+        _, metrics = make_train_step(state.model, cfg, opt)(state, batch)
+        grads = {n: p.grad.detach().double().cpu() for n, p in state.model.named_parameters()
+                 if p.grad is not None}
+        return ([a.gt2pred.cpu() for a in asg.assigns], {k: float(v) for k, v in metrics.items()},
+                grads, [k.launches - b for k, b in zip(kernels, before)])
+
+    runs = {"f64": step("cpu", torch.float64), "cpu": step("cpu"), "kernels": step(dev)}
+    window_attn._window_attn_math_fwd = lambda q, b, m, h: window_attn.window_attn_math_plain(
+        q, b, m, h)
+    window_attn._window_attention_fwd = lambda q, b, m, h, ws: (
+        window_attn.window_attention_plain(q, b, m, h, ws))
+    try:
+        runs["plain"] = step(dev)
+    finally:
+        window_attn._window_attn_math_fwd, window_attn._window_attention_fwd = fwd
+    launched = runs["kernels"][3]
+    _check("swin train launches", min(launched) > 0, f"K8, K7 launched {launched}")
+    ref_asg, ref_metrics, ref_grads, _ = runs["f64"]
+    _check("swin train assignments", all(
+        torch.equal(a, b) for run in runs.values() for a, b in zip(ref_asg, run[0])),
+        "an f32 step's assignments differ from the f64 step's")
+    metric_err = {}
+    for key, (_, metrics, grads, _) in runs.items():
+        metric_err[key] = {k: abs(metrics[k] - v) / max(abs(v), 1e-6)
+                           for k, v in ref_metrics.items()}
+        _check(f"swin train {key} gradients", set(grads) == set(ref_grads)
+               and any("w_msa.qkv" in n for n in grads),
+               f"only {key}: {sorted(set(grads) - set(ref_grads))[:4]}, "
+               f"only f64: {sorted(set(ref_grads) - set(grads))[:4]}")
+    for k, v in metric_err["kernels"].items():
+        _check(f"swin train {k}", v <= SWIN_GRAD_RTOL,
+               f"{runs['kernels'][1][k]} on the card, {ref_metrics[k]} in f64")
+    pairs = {"kernels_vs_f64": ("kernels", "f64"), "plain_vs_f64": ("plain", "f64"),
+             "cpu_f32_vs_f64": ("cpu", "f64"), "kernels_vs_plain": ("kernels", "plain"),
+             "kernels_vs_cpu_f32": ("kernels", "cpu")}
+    worst = {key: (0.0, "") for key in pairs}
+    for n, want in ref_grads.items():
+        scale = float(want.abs().max())
+        rel = {key: float((runs[a][2][n] - runs[b][2][n]).abs().max()) / scale
+               for key, (a, b) in pairs.items()}
+        worst = {key: max(worst[key], (v, n)) for key, v in rel.items()}
+        _check(f"swin train grad {n}", rel["kernels_vs_f64"] <= SWIN_GRAD_RTOL
+               and rel["kernels_vs_plain"] <= SWIN_GRAD_RTOL,
+               f"max err over max |f64|: {rel}")
+    return {"leaves": len(ref_grads), "tolerance": SWIN_GRAD_RTOL,
+            "max_grad_err_of_max_f64": {k: v for k, (v, _) in worst.items()},
+            "worst_leaf": {k: n for k, (_, n) in worst.items()},
+            "max_metric_rel_err_to_f64": {k: max(v.values()) for k, v in metric_err.items()},
+            "grad_norm": {k: run[1]["grad_norm"] for k, run in runs.items()},
+            "k8_k7_launches": launched, "total_loss": runs["kernels"][1]["total_loss"]}
+
+
 def run_train(dev):
     """Phase 5: the image-model train step at full width, 1024x2048, B=1."""
     import torch
@@ -880,6 +1048,7 @@ def run_train(dev):
         "total_loss": [m["total_loss"] for m in all_metrics],
         "grad_norm": [m["grad_norm"] for m in all_metrics],
         "launches": launches, "small_reference": check_train_reference(dev),
+        "swin_small_reference": check_swin_train_reference(dev),
     }
 
 

@@ -6,21 +6,58 @@ candidate maps, the argmax of ``score * prob``, the winner's depth, the
 row/column marginals of the argmax regions and the area where
 ``prob >= 0.5``.  Rows at or beyond ``n_full`` fold into one exact max
 channel; where it wins, the pixel gets the sentinel ``nf``.  The CUDA
-kernel is ``csrc/phase_fusion.cu`` (one thread per stride-4 pixel, all
-phases in registers; the source note there gives the bound and design).
+kernel is ``csrc/phase_fusion.cu`` (one thread per stride-4 pixel and
+half of its row phases, the candidates streamed through a ring of
+shared-memory slots, the marginals counted per block; the source note there
+gives the bound and design), launched as :func:`launch_plan` says.
 
-Both versions share ``_prep``: bf16 storage, K padded to a multiple of 8,
-f32 scores (not bf16), and the lerp rows first, then columns.
+Both versions store the maps in bf16, pad K to a multiple of 8 (the plain
+version with rows of zeros, ``_prep``; the kernel reads the rows past K as
+zeros), take f32 scores (not bf16) and lerp rows first, then columns.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from . import _lib
 
 KERNEL = _lib.Kernel("poly_phase_fusion", [
-    _lib.P, _lib.P, _lib.P, _lib.I32, _lib.I32, _lib.I32, _lib.I32, _lib.I32,
-    _lib.I32, _lib.I32, _lib.P, _lib.P, _lib.P, _lib.P, _lib.P, _lib.I32])
+    _lib.P, _lib.P, _lib.P, _lib.I32, _lib.I32, _lib.I32, _lib.I32, _lib.I32, _lib.I32,
+    _lib.I32, _lib.I32, _lib.P, _lib.P, _lib.P, _lib.P, _lib.P,
+    _lib.I32, _lib.I32, _lib.I32, _lib.I32])
+
+TILE_W = 32  # stride-4 pixels of a tile along x: one warp (csrc/phase_fusion.cu TW)
+TILE_H = 8  # stride-4 rows of a tile (TH); a block is (32, 2 * TILE_H) threads
+HALO = 8  # bf16 columns of shared tile on each side, one 16-byte chunk
+STAGES = 4  # ring slots (STAGES)
+CK = 8  # candidates per slot (CK): kp and nf are multiples of 8
+MAX_SMEM = 232_448  # bytes of shared memory a block may use on the H100 (227 KB)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """A launch of the kernel: ``grid`` (x tiles, y tiles) of TILE_W x
+    TILE_H stride-4 pixels, ``threads`` (32, 2 * TILE_H) a block, ``smem``
+    bytes of dynamic shared memory."""
+    grid: tuple[int, int]
+    threads: tuple[int, int]
+    smem: int
+
+
+def launch_plan(kp: int, nf: int, hs: int, ws: int, f: int) -> Plan:
+    """The kernel's launch for ``kp`` candidates (``nf`` full) of (hs, ws)
+    at factor ``f``: a thread per stride-4 pixel and half of the f row
+    phases.  Shared memory: the ring (STAGES slots, each CK candidates of
+    TILE_H + 2 rows of TILE_W + 2 HALO bf16), the kp scores, and int counts
+    of the tile's TILE_H * f rows, TILE_W * f columns and each warp's area,
+    each per full row."""
+    slot = CK * (TILE_H + 2) * (TILE_W + 2 * HALO) * 2
+    warps = TILE_W * 2 * TILE_H // 32
+    smem = STAGES * slot + 4 * kp + 4 * nf * (TILE_H * f + TILE_W * f + warps)
+    grid = (-(-ws // TILE_W), -(-hs // TILE_H))
+    return Plan(grid, (TILE_W, 2 * TILE_H), smem)
 
 
 def phase_taps(factor: int) -> list[tuple[int, float, float]]:
@@ -37,10 +74,18 @@ def phase_taps(factor: int) -> list[tuple[int, float, float]]:
     return out
 
 
-def _prep(probs, scores, depth, n_full):
-    kk = probs.shape[0]
+def _rows(kk: int, n_full: int | None) -> tuple[int, int, int]:
+    """(kpad, nf, kf): K padded to a multiple of 8, the full rows (n_full
+    rounded up to a multiple of 8, at most kpad) and the rows with
+    marginals."""
     kpad = (kk + 7) // 8 * 8
     nf = kpad if n_full is None else min((n_full + 7) // 8 * 8, kpad)
+    return kpad, nf, min(nf, kk)
+
+
+def _prep(probs, scores, depth, n_full):
+    kk = probs.shape[0]
+    kpad, nf, kf = _rows(kk, n_full)
 
     def pad(x):
         x = x.to(torch.bfloat16)
@@ -51,7 +96,7 @@ def _prep(probs, scores, depth, n_full):
     s = scores.float()
     if kpad != kk:
         s = torch.cat([s, s.new_zeros(kpad - kk)])
-    return pad(probs), s.contiguous(), pad(depth), kpad, nf, min(nf, kk)
+    return pad(probs), s.contiguous(), pad(depth), kpad, nf, kf
 
 
 def _shift(x: torch.Tensor, d: int, dim: int) -> torch.Tensor:
@@ -119,20 +164,29 @@ def _phase_fusion_cuda(probs, scores, depth, fy, fx, n_full):
     kk, hs, ws = probs.shape
     if depth.shape != probs.shape or scores.shape != (kk,):
         raise ValueError("phase_fusion: probs, depth and scores disagree in shape")
-    m, s, d, kpad, nf, kf = _prep(probs, scores, depth, n_full)
-    if (fy + 1) * nf * 4 > 48 * 1024:
-        raise ValueError(f"phase_fusion kernel: {nf} full rows exceed its shared memory")
+    # bf16 storage and f32 scores as _prep, the padding rows left to the
+    # kernel (it reads them as zeros)
+    m, d = (t.to(torch.bfloat16).contiguous() for t in (probs, depth))
+    s = scores.float().contiguous()
+    kpad, nf, kf = _rows(kk, n_full)
+    plan = launch_plan(kpad, nf, hs, ws, fy)
+    if plan.smem > MAX_SMEM:
+        raise ValueError(f"phase_fusion kernel: {nf} full rows need {plan.smem} bytes of "
+                         f"shared memory, more than {MAX_SMEM}")
+    if plan.grid[1] > 65535 or hs * ws * CK >= 2 ** 31:
+        raise ValueError(f"phase_fusion kernel: {hs}x{ws} exceeds its grid or 32-bit offsets")
     h, w = hs * fy, ws * fx
     dev = probs.device
     pix = torch.empty((h, w), dtype=torch.int32, device=dev)
     dep = torch.empty((h, w), dtype=torch.float32, device=dev)
-    rowm = torch.zeros((kf, h), dtype=torch.float32, device=dev)
-    colm = torch.zeros((kf, w), dtype=torch.float32, device=dev)
-    oarea = torch.zeros((kf,), dtype=torch.float32, device=dev)
-    threads = 128 if ws >= 128 else 32 * -(-ws // 32)
-    KERNEL.launch(m.data_ptr(), d.data_ptr(), s.data_ptr(), kpad, nf, kf, hs, ws,
-                  fy, fx, pix.data_ptr(), dep.data_ptr(), rowm.data_ptr(),
-                  colm.data_ptr(), oarea.data_ptr(), threads)
+    counts = torch.zeros((kf * (h + w + 1),), dtype=torch.float32, device=dev)  # one memset
+    rowm = counts[:kf * h].view(kf, h)
+    colm = counts[kf * h:kf * (h + w)].view(kf, w)
+    oarea = counts[kf * (h + w):]
+    vec = ws % 8 == 0 and m.data_ptr() % 16 == 0
+    KERNEL.launch(m.data_ptr(), d.data_ptr(), s.data_ptr(), kk, kpad, nf, kf, hs, ws,
+                  fy, fx, pix.data_ptr(), dep.data_ptr(), rowm.data_ptr(), colm.data_ptr(), oarea.data_ptr(),
+                  *plan.grid, plan.smem, int(vec))
     return pix, dep, rowm, colm, oarea
 
 

@@ -8,8 +8,10 @@ the gradient is the exact transposed stencil (``_down_axis``), columns
 first and then rows.  The CUDA kernels are in ``csrc/upsample.cu`` (forward:
 4 source columns of one source row per thread, float4 loads and stores,
 the phase weights of :func:`phase_weights` handed in by the host, factors 2
-and 4 specialised; backward: one thread per source element; the source
-notes there give the bound and design).  :func:`upsample_int` is a
+and 4 specialised; backward: 4 source columns over a band of 2 source rows
+per thread, each gradient row loaded and column-passed once, the same
+weights, factors 2 and 4 specialised and a generic kernel for the others;
+the source notes there give the bound and design).  :func:`upsample_int` is a
 ``torch.autograd.Function``: a CUDA tensor launches the kernels in both
 directions, a CPU tensor takes the plain versions in both.
 """
@@ -26,7 +28,8 @@ KERNEL = _lib.Kernel("poly_upsample_int", [
     _lib.P, _lib.P, _lib.I64, _lib.I32, _lib.I32, _lib.I32, _lib.I32,
     _lib.P, _lib.P, _lib.P, _lib.P, _lib.I32])
 KERNEL_BWD = _lib.Kernel("poly_upsample_int_bwd", [
-    _lib.P, _lib.P, _lib.I64, _lib.I32, _lib.I32, _lib.I32, _lib.I32])
+    _lib.P, _lib.P, _lib.I64, _lib.I32, _lib.I32, _lib.I32, _lib.I32,
+    _lib.P, _lib.P, _lib.P, _lib.P, _lib.I32])
 
 
 def phase_weights(factor: int) -> list[tuple[int, float, float]]:
@@ -130,8 +133,15 @@ def _upsample_int_bwd_cuda(g: torch.Tensor, fy: int, fx: int) -> torch.Tensor:
     n, fh, fw = g.shape
     if fh % fy or fw % fx:
         raise ValueError(f"gradient {tuple(g.shape)} is not a x({fy}, {fx}) upsample")
-    dx = torch.empty((n, fh // fy, fw // fx), device=g.device, dtype=torch.float32)
-    KERNEL_BWD.launch(g.data_ptr(), dx.data_ptr(), n, fh // fy, fw // fx, fy, fx)
+    if n > 65535:
+        raise ValueError(f"upsample_int_bwd: {n} images exceed the kernel's grid (65535)")
+    h, w = fh // fy, fw // fx
+    dx = torch.empty((n, h, w), device=g.device, dtype=torch.float32)
+    (by, wy), (bx, wx) = _phase_args(fy), _phase_args(fx)
+    vec = w % 4 == 0 and g.data_ptr() % 16 == 0 and dx.data_ptr() % 16 == 0
+    KERNEL_BWD.launch(g.data_ptr(), dx.data_ptr(), n, h, w, fy, fx, ctypes.addressof(by),
+                      ctypes.addressof(wy), ctypes.addressof(bx), ctypes.addressof(wx),
+                      int(vec))
     return dx
 
 

@@ -15,8 +15,11 @@ Both CUDA kernels are ``csrc/window_attn.cu`` (the source note there gives
 the bound and design: for bf16 qkv both products on the tensor cores, f32
 qkv on the CUDA cores).  A CUDA tensor launches the kernel; a CPU tensor
 takes the plain version beside it, the same function in f32 PyTorch ops.
-Serving only: the JAX package differentiates a plain recompute, and the
-Swin train step is not ported.
+Each entry point is a ``torch.autograd.Function`` on either device: the
+forward is the kernel (or the plain version), the backward the VJP of the
+plain version recomputed from the saved inputs, as the JAX package's
+custom VJPs differentiate their jnp formulations (``_wam_bwd``,
+``_wa_bwd``).  So no backward kernel exists, and none is needed.
 """
 from __future__ import annotations
 
@@ -160,11 +163,7 @@ def _plan_args(qkv, nwin: int, num_heads: int, c: int, l: int, masked: bool) -> 
     return plan.group, plan.pitch, plan.smem, int(vec)
 
 
-def window_attn_math(qkv: torch.Tensor, bias: torch.Tensor, mask: torch.Tensor | None,
-                     num_heads: int) -> torch.Tensor:
-    """K7.  qkv (nw, L, 3C) f32 or bf16; bias (heads, L, L) f32; mask
-    (ntypes, L, L) f32 with nw a multiple of ntypes, or None.  Returns (nw,
-    L, C) in qkv's dtype."""
+def _window_attn_math_fwd(qkv, bias, mask, num_heads: int) -> torch.Tensor:
     if qkv.device.type == "cpu":
         return window_attn_math_plain(qkv, bias, mask, num_heads)
     if qkv.dim() != 3:
@@ -179,12 +178,7 @@ def window_attn_math(qkv: torch.Tensor, bias: torch.Tensor, mask: torch.Tensor |
     return out
 
 
-def window_attention(qkv: torch.Tensor, bias: torch.Tensor, mask: torch.Tensor | None,
-                     num_heads: int, ws: int) -> torch.Tensor:
-    """K8.  qkv (B, Hp, Wp, 3C) f32 or bf16 with Hp and Wp multiples of
-    ``ws``; bias (heads, ws*ws, ws*ws) f32; mask (Hp/ws * Wp/ws, ws*ws,
-    ws*ws) f32, the same for every image, or None.  Returns (B, Hp, Wp, C)
-    in qkv's dtype."""
+def _window_attention_fwd(qkv, bias, mask, num_heads: int, ws: int) -> torch.Tensor:
     if qkv.device.type == "cpu":
         return window_attention_plain(qkv, bias, mask, num_heads, ws)
     if qkv.dim() != 4:
@@ -201,3 +195,59 @@ def window_attention(qkv: torch.Tensor, bias: torch.Tensor, mask: torch.Tensor |
                         _scale(c // num_heads),
                         *_plan_args(qkv, b * per_image, num_heads, c, l, mask is not None))
     return out
+
+
+def _plain_vjp(plain, inputs, needs, g: torch.Tensor) -> tuple:
+    """The gradients of ``plain(*inputs)`` for the inputs flagged in
+    ``needs`` (None for the others), recomputed under autograd."""
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach().requires_grad_(need)
+                  for t, need in zip(inputs, needs)]
+        wrt = [t for t, need in zip(leaves, needs) if need]
+        grads = iter(torch.autograd.grad(plain(*leaves), wrt, g))
+    return tuple(next(grads) if need else None for need in needs)
+
+
+class _WindowAttnMath(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, bias, mask, num_heads: int):
+        ctx.save_for_backward(qkv, bias, mask)
+        ctx.num_heads = num_heads
+        return _window_attn_math_fwd(qkv, bias, mask, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        heads = ctx.num_heads
+        return (*_plain_vjp(lambda q, b, m: window_attn_math_plain(q, b, m, heads),
+                            ctx.saved_tensors, ctx.needs_input_grad[:3], g), None)
+
+
+class _WindowAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, bias, mask, num_heads: int, ws: int):
+        ctx.save_for_backward(qkv, bias, mask)
+        ctx.shape = (num_heads, ws)
+        return _window_attention_fwd(qkv, bias, mask, num_heads, ws)
+
+    @staticmethod
+    def backward(ctx, g):
+        heads, ws = ctx.shape
+        return (*_plain_vjp(lambda q, b, m: window_attention_plain(q, b, m, heads, ws),
+                            ctx.saved_tensors, ctx.needs_input_grad[:3], g), None, None)
+
+
+def window_attn_math(qkv: torch.Tensor, bias: torch.Tensor, mask: torch.Tensor | None,
+                     num_heads: int) -> torch.Tensor:
+    """K7.  qkv (nw, L, 3C) f32 or bf16; bias (heads, L, L) f32; mask
+    (ntypes, L, L) f32 with nw a multiple of ntypes, or None.  Returns (nw,
+    L, C) in qkv's dtype, differentiable in qkv, bias and mask."""
+    return _WindowAttnMath.apply(qkv, bias, mask, num_heads)
+
+
+def window_attention(qkv: torch.Tensor, bias: torch.Tensor, mask: torch.Tensor | None,
+                     num_heads: int, ws: int) -> torch.Tensor:
+    """K8.  qkv (B, Hp, Wp, 3C) f32 or bf16 with Hp and Wp multiples of
+    ``ws``; bias (heads, ws*ws, ws*ws) f32; mask (Hp/ws * Wp/ws, ws*ws,
+    ws*ws) f32, the same for every image, or None.  Returns (B, Hp, Wp, C)
+    in qkv's dtype, differentiable in qkv, bias and mask."""
+    return _WindowAttention.apply(qkv, bias, mask, num_heads, ws)

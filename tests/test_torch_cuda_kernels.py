@@ -97,17 +97,27 @@ def test_upsample_bit_equal(dev, fy, fx):
     assert torch.equal(upsample2.upsample_int(x, fy, fx), upsample2.upsample_int_plain(x, fy, fx))
 
 
+# (K, hs, ws): widths off the 8-column chunk (plain fills) and off the
+# 32-column tile; hs one more than a tile of stride rows at f = 4 (4) and
+# f = 2 (8); 16-byte fills with ragged tiles
+PF_SHAPES = [(27, 11, 150), (27, 5, 33), (19, 9, 40), (70, 17, 64)]
+
+
 @pytest.mark.parametrize("f", [2, 4])
-@pytest.mark.parametrize("n_full", [None, 10])
-def test_phase_fusion(dev, f, n_full):
-    """pix, marginals and areas exact; dep rtol 1e-5, atol 1e-4.  Widths
-    not a multiple of the block exercise the ragged edge."""
+@pytest.mark.parametrize("n_full", [None, 10, 8, 64])
+@pytest.mark.parametrize("kk,hs,ws", PF_SHAPES)
+def test_phase_fusion(dev, f, n_full, kk, hs, ws):
+    """pix, marginals and areas exact; dep rtol 1e-5, atol 1e-4; two
+    candidates tie exactly (the first must win).  Widths and heights not a
+    multiple of the tile exercise the ragged edges."""
     g = torch.Generator(device=dev).manual_seed(2)
-    kk, hs, ws = 27, 11, 150
     probs = torch.sigmoid(torch.randn((kk, hs, ws), generator=g, device=dev) * 3)
     scores = torch.rand((kk,), generator=g, device=dev)
     depth = torch.rand((kk, hs, ws), generator=g, device=dev) * 70 + 1
+    probs[3], scores[3] = probs[1], scores[1]
+    before = phase_fusion.KERNEL.launches
     got = phase_fusion.phase_fusion(probs, scores, depth, f, f, n_full=n_full)
+    assert phase_fusion.KERNEL.launches == before + 1
     want = phase_fusion.phase_fusion_plain(probs, scores, depth, f, f, n_full=n_full)
     for i in (0, 2, 3, 4):
         assert torch.equal(got[i], want[i]), i
@@ -127,18 +137,46 @@ def test_map_render(dev):
         assert torch.equal(a, b)
 
 
+# (n, h, w) of the source: ragged everything; one row past whole blocks of
+# source rows and one column past a block's 128 (scalar path); whole blocks
+# (float4 path); float4 with ragged bands and strips
+BWD_SHAPES = [(3, 13, 29), (2, 33, 129), (2, 32, 128), (1, 65, 132)]
+
+
 @pytest.mark.parametrize("fy,fx", [(2, 2), (4, 4), (3, 2), (1, 4)])
-def test_upsample_bwd_bit_equal(dev, fy, fx):
+@pytest.mark.parametrize("n,h,w", BWD_SHAPES)
+def test_upsample_bwd_bit_equal(dev, fy, fx, n, h, w):
     """K2b against its plain version, and through autograd."""
     g = torch.Generator(device=dev).manual_seed(4)
-    grad = torch.randn((3, 13 * fy, 29 * fx), generator=g, device=dev)
+    grad = torch.randn((n, h * fy, w * fx), generator=g, device=dev)
     before = upsample2.KERNEL_BWD.launches
     got = upsample2._upsample_int_bwd_cuda(grad, fy, fx)
     assert torch.equal(got, upsample2.upsample_int_bwd_plain(grad, fy, fx))
-    x = torch.randn((3, 13, 29), generator=g, device=dev, requires_grad=True)
+    x = torch.randn((n, h, w), generator=g, device=dev, requires_grad=True)
     upsample2.upsample_int(x, fy, fx).backward(grad)
     assert torch.equal(x.grad, got)
     assert upsample2.KERNEL_BWD.launches == before + 2
+
+
+def test_upsample_bwd_unaligned(dev):
+    """A gradient that starts one element off a 16-byte boundary takes the
+    kernel's scalar loads; bit-equal all the same."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    flat = torch.randn((1 + 2 * 64 * 256,), generator=g, device=dev)
+    grad = flat[1:].view(2, 64, 256)
+    assert grad.data_ptr() % 16
+    assert torch.equal(upsample2._upsample_int_bwd_cuda(grad, 2, 2),
+                       upsample2.upsample_int_bwd_plain(grad, 2, 2))
+
+
+@pytest.mark.parametrize("n", [444, 19])
+def test_upsample_bwd_main_shapes_bit_equal(dev, n):
+    """The train step's gradients: (444, 256, 512) stacked masks and (19,
+    256, 512) semantic logits."""
+    grad = torch.randn((n, 256, 512), generator=torch.Generator(device=dev).manual_seed(6),
+                       device=dev)
+    assert torch.equal(upsample2._upsample_int_bwd_cuda(grad, 2, 2),
+                       upsample2.upsample_int_bwd_plain(grad, 2, 2))
 
 
 @pytest.mark.parametrize("g_rows,p_cols", [(64, 100), (12, 20), (40, 40), (7, 130)])
@@ -380,6 +418,57 @@ def test_window_attn_wrappers_refuse(dev):
     with pytest.raises(ValueError):  # 14x21 is 6 windows, not 4
         window_attn.window_attention(torch.zeros((1, 14, 21, 96), device=dev), bias,
                                      torch.zeros((4, 49, 49), device=dev), 2, 7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("entry", ["k7", "k8"])
+def test_window_attn_grads_match_plain(dev, dtype, masked, entry):
+    """On the card the output of K7/K8 carries a grad_fn when qkv requires
+    grad, and the qkv and bias gradients (the plain version's VJP) lie
+    within 1e-5 x max |plain| of autograd through the plain version on the
+    same inputs and cotangent: two images of 3x4 windows of 49 tokens, 3
+    heads of 32."""
+    from polyphonicformer_torch.models.swin import _shift_attn_mask, window_partition
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    heads, ws, hp, wp = 3, 7, 21, 28
+    qkv = torch.randn((2, hp, wp, 3 * heads * 32), generator=g, device=dev).to(dtype)
+    bias = torch.randn((heads, 49, 49), generator=g, device=dev) * 0.5
+    mask = torch.from_numpy(_shift_attn_mask(hp, wp, ws, 3)).to(dev) if masked else None
+    if entry == "k7":
+        qkv = window_partition(qkv, ws).contiguous()
+        run, plain, extra = window_attn.window_attn_math, window_attn.window_attn_math_plain, ()
+        kernel = window_attn.KERNEL_MATH
+    else:
+        run, plain, extra = window_attn.window_attention, window_attn.window_attention_plain, (ws,)
+        kernel = window_attn.KERNEL_IMAGE
+    grads, cot = [], None
+    for fn in (run, plain):
+        q, b = qkv.clone().requires_grad_(True), bias.clone().requires_grad_(True)
+        before = kernel.launches
+        y = fn(q, b, mask, heads, *extra)
+        if fn is run:
+            assert y.grad_fn is not None and kernel.launches == before + 1
+        if cot is None:
+            cot = torch.randn(y.shape, generator=g, device=dev).to(dtype)
+        y.backward(cot)
+        grads.append((q.grad.float(), b.grad))
+    for got, want in zip(*grads):
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def test_swin_train_step_grads_match_f64_reference(dev):
+    """A debug_tiny train step with the swin_tiny backbone on the card
+    through K7 and K8 against the same step in f64 on the CPU and with the
+    plain versions on the card (``chip_smoke.check_swin_train_reference``,
+    which raises on a mismatch): assignments, losses, grad_norm and every
+    parameter's gradient, K7 and K8 launched."""
+    import chip_smoke
+
+    info = chip_smoke.check_swin_train_reference(dev)
+    worst = info["max_grad_err_of_max_f64"]
+    assert max(worst["kernels_vs_f64"], worst["kernels_vs_plain"]) <= chip_smoke.SWIN_GRAD_RTOL
 
 
 def test_swin_frame_never_syncs(dev):

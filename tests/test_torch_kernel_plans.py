@@ -1,5 +1,6 @@
-"""What the port's K1 and K2 wrappers hand their CUDA kernels, checked on
-the CPU: K2's phase weights against the JAX package's, K1's launch plan,
+"""What the port's K1, K2 and K3 wrappers hand their CUDA kernels, checked
+on the CPU: K2's phase weights and K3's phase taps against the JAX
+package's, K3's launch plan, K1's launch plan,
 K1's threshold band, and a numpy mirror of K1's exact three-way bf16 split
 of f32 features (pooling with it against JAX ``masked_pool``).  No card, no
 compile."""
@@ -10,8 +11,9 @@ import jax.numpy as jnp
 import torch
 
 from polyphonicformer_tpu.ops.pallas.mask_pool import masked_pool as jax_masked_pool
+from polyphonicformer_tpu.ops.pallas.phase_fusion import _phase_taps
 from polyphonicformer_tpu.ops.resize import _phase_weights
-from polyphonicformer_torch.ops.cuda import mask_pool, upsample2
+from polyphonicformer_torch.ops.cuda import mask_pool, phase_fusion, upsample2
 
 H100_SMS = 132
 
@@ -28,6 +30,49 @@ def test_phase_weights_bit_equal_to_jax(factor):
     bases, pairs = upsample2._phase_args(factor)
     assert list(bases) == base.tolist()
     assert np.array(list(pairs), dtype=np.float32).tobytes() == weights.reshape(-1).tobytes()
+
+
+@pytest.mark.parametrize("factor", [2, 4])
+def test_phase_taps_bit_equal_to_jax(factor):
+    """``phase_taps`` and the kernel's compile-time taps
+    (``csrc/phase_fusion.cu::Taps``: lam = f32((p + 0.5) / F - 0.5 + 1 for
+    the first half of the phases), w0 = 1 - lam in f32) equal JAX
+    ``_phase_taps`` bit for bit, and the base offset is -1 for the first
+    half of the phases, 0 for the rest (the kernel's constant)."""
+    want = _phase_taps(factor)
+    assert phase_fusion.phase_taps(factor) == want
+    assert [b for b, _, _ in want] == [-1] * (factor // 2) + [0] * (factor // 2)
+    lam = [np.float32((p + 0.5) / factor - 0.5 + (p < factor // 2)) for p in range(factor)]
+    kernel = np.array([[np.float32(1) - x, x] for x in lam], dtype=np.float32)
+    assert kernel.tobytes() == np.array([[w0, w1] for _, w0, w1 in want],
+                                        dtype=np.float32).tobytes()
+
+
+@pytest.mark.parametrize("kp,nf,hs,ws,f", [
+    (112, 64, 256, 512, 4),   # R50 and Swin-L serving, one clip or each of a batch
+    (112, 112, 256, 512, 4),  # the same, no rows folded
+    (112, 64, 256, 512, 2),   # factor 2
+    (32, 8, 5, 33, 4),        # the card test's shapes: one past a tile
+    (24, 16, 9, 40, 2),
+    (72, 64, 17, 64, 4),
+    (8, 8, 1, 1, 4),          # one stride-4 pixel
+])
+def test_phase_fusion_launch_plan(kp, nf, hs, ws, f):
+    """The grid covers every stride-4 pixel with no empty tile, a block is
+    (32, 16) threads (8 stride-4 rows), and shared memory (the ring,
+    scores, counts) stays within a block's 227 KB; at the serving shape two
+    blocks fit an SM."""
+    plan = phase_fusion.launch_plan(kp, nf, hs, ws, f)
+    gx, gy = plan.grid
+    assert gx * phase_fusion.TILE_W >= ws > (gx - 1) * phase_fusion.TILE_W
+    assert gy * phase_fusion.TILE_H >= hs > (gy - 1) * phase_fusion.TILE_H and gy <= 65535
+    assert plan.threads == (32, 16) and phase_fusion.TILE_H == 8
+    ring = phase_fusion.STAGES * phase_fusion.CK * (8 + 2) * (32 + 2 * phase_fusion.HALO) * 2
+    assert plan.smem == ring + 4 * kp + 4 * nf * (8 * f + 32 * f + 16)
+    assert plan.smem <= phase_fusion.MAX_SMEM
+    assert 2 <= phase_fusion.STAGES <= 8 and ring % 16 == 0
+    if (hs, ws) == (256, 512) and nf == 64:
+        assert 2 * plan.smem <= 228 * 1024
 
 
 @pytest.mark.parametrize("b,n,hw,c", [

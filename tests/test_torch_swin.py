@@ -13,9 +13,10 @@ converter (``convert_torch_ckpt``).  The JAX kernels run in interpret mode.
   JAX's 56-column tile), f32 and bf16.
 - ``SwinTransformer`` with stage 0 at 2 heads (K8) and stage 1 at 16 heads
   (K7), two 60x100 images (padding at both stages): against JAX's default
-  XLA path in f32, and against JAX with both kernels switched on
-  (``POLY_FUSED_WATTN=interpret``, ``POLY_WATTN_MATH=interpret``) in f32 and
-  bf16.
+  XLA path and against JAX with both kernels switched on
+  (``POLY_FUSED_WATTN=interpret``, ``POLY_WATTN_MATH=interpret``), each in
+  f32 and bf16.  JAX's bf16 XLA path rounds Q K^T to bf16 before the scale
+  and P to bf16 at every stage, where the port's K8 keeps P in f32.
 - The whole model on ``swin_tiny`` at the debug widths, 64x128, f32.
 
 Tolerances.  f32: sums in another order, |port - jax| <= 1e-5 (kernels,
@@ -179,7 +180,7 @@ def _jax_swin_variables(model):
     return {"params": jax_ckpt.unflatten_tree(flat)}
 
 
-@pytest.mark.parametrize("path", ["xla_f32", "kernels_f32", "kernels_bf16"])
+@pytest.mark.parametrize("path", ["xla_f32", "kernels_f32", "kernels_bf16", "xla_bf16"])
 def test_swin_backbone_matches_jax(path, monkeypatch):
     kernels = path.startswith("kernels")
     monkeypatch.setenv("POLY_FUSED_WATTN", "interpret" if kernels else "0")
