@@ -409,7 +409,7 @@ def check_train_kernels(dev, gen) -> list[dict]:
     versions at the shapes of the image-model train step at 1024x2048."""
     import torch
 
-    from polyphonicformer_torch.ops.cuda import lsa, mask_loss, upsample2
+    from polyphonicformer_torch.ops.cuda import lsa, upsample2
     from polyphonicformer_torch.ops.hungarian import match_gt_to_preds_batched
 
     rows = []
@@ -453,46 +453,72 @@ def check_train_kernels(dev, gen) -> list[dict]:
         plain_ms=_time_ms(lambda: lsa.solve_lsa_plain(prepared, valid), reps=3),
         library_ms=None, **_bound(_nbytes(prepared, valid, got))))
 
-    # K6 / K6b on the three refinement stages' mask volume
-    shape = (3, 111, 256, 512)
+    # K6 / K6b on the three refinement stages' mask volume and on the rpn
+    # head's, the train step's two calls
+    for shape, sfx in (((3, 111, 256, 512), ""), ((1, 100, 256, 512), "_n100")):
+        rows += mask_loss_rows(dev, gen, shape, sfx)
+    return rows
+
+
+def mask_loss_rows(dev, gen, shape, sfx: str) -> list[dict]:
+    """K6 and K6b at one shape: stats and dice within rtol 1e-5 of the plain
+    version, the saved lse bit-equal to the plain version's, equal bits on
+    a second launch, dm within 1e-7 + 1e-5|x| of the plain gradient given
+    the same lse.  The bounds count the function's inputs and outputs, not
+    the lse the forward saves for the backward (1.5 MB at the stages'
+    shape, 0.3% of either bound)."""
+    import torch
+
+    from polyphonicformer_torch.ops.cuda import mask_loss
+
+    n, q, h, w = shape
     m = torch.randn(shape, generator=gen, device=dev) * 3
     t = (torch.rand(shape, generator=gen, device=dev) < 0.2).float()
     pos = (torch.rand(shape[:2], generator=gen, device=dev) < 0.3).float()
-    v = (torch.rand((3, 256, 512), generator=gen, device=dev) < 0.9).float()
-    lbl = torch.randint(0, 111, (3, 256, 512), generator=gen, device=dev, dtype=torch.int32)
-    lbl[torch.rand((3, 256, 512), generator=gen, device=dev) < 0.2] = 255
-    stats, dice = mask_loss._stats_cuda(m, t, pos, v, lbl)
+    v = (torch.rand((n, h, w), generator=gen, device=dev) < 0.9).float()
+    lbl = torch.randint(0, q, (n, h, w), generator=gen, device=dev, dtype=torch.int32)
+    lbl[torch.rand((n, h, w), generator=gen, device=dev) < 0.2] = 255
+    out = mask_loss._stats_cuda(m, t, pos, v, lbl)
+    again = mask_loss._stats_cuda(m, t, pos, v, lbl)
     torch.cuda.synchronize()
-    ws, wd = mask_loss.mask_loss_stats_plain(m, t, pos, v, lbl)
+    stats, dice, lse = out
+    ws, wd, wl = mask_loss.mask_loss_stats_plain(m, t, pos, v, lbl)
+    name = f"mask_loss{sfx}"
     err = 0.0
-    for name, a, b in (("stats", stats, ws), ("dice", dice, wd)):
+    for part, a, b in (("stats", stats, ws), ("dice", dice, wd)):
         diff = (a - b).abs()
-        _check(f"mask_loss {name}", bool((diff <= 1e-5 * b.abs()).all()),
+        _check(f"{name} {part}", bool((diff <= 1e-5 * b.abs()).all()),
                f"max rel err {float((diff / b.abs().clamp(min=1e-30)).max())}")
         err = max(err, float(diff.max()))
-    rows.append(dict(
-        name="mask_loss", route="cuda", source="polyphonicformer_torch/csrc/mask_loss.cu",
+    _exact(f"{name} lse", lse, wl)
+    _check(name, all(torch.equal(a, b) for a, b in zip(out, again)), "two launches differ")
+    rows = [dict(
+        name=name, kernel="mask_loss", route="cuda",
+        source="polyphonicformer_torch/csrc/mask_loss.cu",
         replaces="polyphonicformer_tpu/ops/pallas/mask_loss.py:142", max_abs_err=err,
-        ms=_time_ms(lambda: mask_loss._stats_cuda(m, t, pos, v, lbl)),
+        lse_bit_equal=True, ms=_time_ms(lambda: mask_loss._stats_cuda(m, t, pos, v, lbl)),
         plain_ms=_time_ms(lambda: mask_loss.mask_loss_stats_plain(m, t, pos, v, lbl)),
-        library_ms=None, **_bound(_nbytes(m, t, pos, v, lbl, stats, dice))))
-    gs = torch.randn((3, 2), generator=gen, device=dev)
-    gd = torch.randn((3, 3, 111), generator=gen, device=dev)
-    dm = mask_loss._grad_cuda(m, t, pos, v, lbl, gs, gd)
+        library_ms=None, shape=f"{shape} f32",
+        **_bound(_nbytes(m, t, pos, v, lbl, stats, dice)))]
+    del ws, wd, again
+    gs = torch.randn((n, 2), generator=gen, device=dev)
+    gd = torch.randn((n, 3, q), generator=gen, device=dev)
+    dm = mask_loss._grad_cuda(m, t, pos, v, lbl, gs, gd, lse)
     torch.cuda.synchronize()
-    want = mask_loss.mask_loss_grad_plain(m, t, pos, v, lbl, gs, gd)
+    want = mask_loss.mask_loss_grad_plain(m, t, pos, v, lbl, gs, gd, wl)
     diff = (dm - want).abs()
-    _check("mask_loss dm", bool((diff <= 1e-7 + 1e-5 * want.abs()).all()),
+    _check(f"{name} dm", bool((diff <= 1e-7 + 1e-5 * want.abs()).all()),
            f"max err {float(diff.max())}")
+    err = float(diff.max())
     del want, diff
     rows.append(dict(
-        name="mask_loss_bwd", route="cuda", source="polyphonicformer_torch/csrc/mask_loss.cu",
-        replaces="polyphonicformer_tpu/ops/pallas/mask_loss.py:162",
-        max_abs_err=float((dm - mask_loss.mask_loss_grad_plain(m, t, pos, v, lbl, gs, gd))
-                          .abs().max()),
-        ms=_time_ms(lambda: mask_loss._grad_cuda(m, t, pos, v, lbl, gs, gd)),
-        plain_ms=_time_ms(lambda: mask_loss.mask_loss_grad_plain(m, t, pos, v, lbl, gs, gd)),
-        library_ms=None, **_bound(_nbytes(m, t, pos, v, lbl, gs, gd, dm))))
+        name=f"mask_loss_bwd{sfx}", kernel="mask_loss_bwd", route="cuda",
+        source="polyphonicformer_torch/csrc/mask_loss.cu",
+        replaces="polyphonicformer_tpu/ops/pallas/mask_loss.py:162", max_abs_err=err,
+        ms=_time_ms(lambda: mask_loss._grad_cuda(m, t, pos, v, lbl, gs, gd, lse)),
+        plain_ms=_time_ms(lambda: mask_loss.mask_loss_grad_plain(m, t, pos, v, lbl, gs, gd, wl)),
+        library_ms=None, shape=f"{shape} f32",
+        **_bound(_nbytes(m, t, pos, v, lbl, gs, gd, dm))))
     return rows
 
 

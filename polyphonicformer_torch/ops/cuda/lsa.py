@@ -28,8 +28,9 @@ def smem_bytes(g: int, p: int) -> int:
     return (g * p + g + 2 * p) * 4 + (3 * p + 2 * g) * 4
 
 
-def _solve_one(cost: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+def _solve_one(cost: torch.Tensor, valid: torch.Tensor, steps: list | None) -> torch.Tensor:
     g, p = cost.shape
+    n_steps = 0
     dev = cost.device
     u = torch.zeros(g, dtype=torch.float32, device=dev)
     v = torch.zeros(p, dtype=torch.float32, device=dev)
@@ -44,6 +45,7 @@ def _solve_one(cost: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         path = torch.full((p,), -1, dtype=torch.int32, device=dev)
         scanned = torch.zeros(g, dtype=torch.bool, device=dev)
         while True:
+            n_steps += 1
             scanned[i] = True
             r = min_val + cost[i] - u[i] - v
             better = (r < spc) & remaining
@@ -72,13 +74,18 @@ def _solve_one(cost: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
             j = nxt
             if i == cur:
                 break
+    if steps is not None:
+        steps.append(n_steps)
     return torch.where(valid, col4row, -1)
 
 
-def solve_lsa_plain(costs: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+def solve_lsa_plain(costs: torch.Tensor, valid: torch.Tensor,
+                    steps: list | None = None) -> torch.Tensor:
     """costs (N, G, P) f32 with G <= P, valid (N, G) bool -> (N, G) int32
-    assigned column per row, -1 for invalid rows."""
-    return torch.stack([_solve_one(c, v) for c, v in zip(costs.float(), valid)]) \
+    assigned column per row, -1 for invalid rows.  ``steps``: a list that
+    gets each problem's number of Dijkstra steps (the kernel's serial
+    chain: one block-wide argmin each)."""
+    return torch.stack([_solve_one(c, v, steps) for c, v in zip(costs.float(), valid)]) \
         if costs.shape[0] else torch.empty(valid.shape, dtype=torch.int32, device=costs.device)
 
 

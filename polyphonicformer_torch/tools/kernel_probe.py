@@ -6,7 +6,26 @@ Parts (all by default), one JSON line each, then the card's name and power
 limit:
 
 * ``res_usage``: registers, stack and local (spill) bytes a thread of the
-  K2b and K3 kernels of the built library, from ``cuobjdump -res-usage``;
+  K2b, K3, K6 and K6b kernels of the built library, from ``cuobjdump
+  -res-usage``;
+* ``k6``: K6 and K6b through the public ``mask_loss_stats`` and autograd's
+  backward at the train step's two shapes (the stages' (3, 111, 256, 512)
+  and the rpn head's (1, 100, 256, 512)): within the tolerances of the
+  plain version, device ms (median of 20) beside the plain version's and
+  the byte bound (the function's inputs and outputs: m, t, pos, valid,
+  lbl and stats, dice; m, t, pos, valid, lbl, the cotangents and dm);
+* ``k6_instructions``: the SASS instructions of K6's and K6b's main loop
+  (the largest loop of each vector-path kernel in ``cuobjdump -sass``),
+  per element (a loop iteration covers GROUP or DEPTH queries of PPT
+  pixels, constants read from the source), and the floor they imply at
+  the stages' shape at 33.5 T instructions/s;
+* ``k5``: K5's latency bound: the Dijkstra steps of each problem (counted
+  by the plain solver) at phase 3's distribution (16 problems of 64 x 100)
+  and at the problems of one full-width ``image_r50_2x`` train step (seeded
+  weights and batch, as phase 5), times the least time of one step, read
+  from a probe kernel that runs only a chain of dependent block-wide
+  argmins of P values with one ``__syncthreads`` each; beside K5's own time
+  at those problems;
 * ``k2b``: K2b (``upsample_int_bwd``) through its wrapper at the train
   step's four x2 gradients and at two x4 gradients (``K2B_SHAPES``):
   bit-equal to the plain version, device ms (CUDA events, median of 20)
@@ -22,9 +41,9 @@ limit:
   count for the kernel K3 had before (blocks of one stride-4 row x 128
   stride-4 columns, one column atomic per counted pixel).
 
-The parts ``res_usage``, ``k2b`` and ``wrapper_host`` use only entry
-points that earlier versions of the package have too, so the tool can be
-copied into an older checkout and run there to compare the two.
+The parts ``res_usage``, ``k2b``, ``wrapper_host`` and ``k6`` use only
+entry points that earlier versions of the package have too, so the tool can
+be copied into an older checkout and run there to compare the two.
 """
 from __future__ import annotations
 
@@ -36,7 +55,9 @@ import subprocess
 import sys
 import time
 
-PARTS = ("res_usage", "k2b", "wrapper_host", "k3_atomics")
+PARTS = ("res_usage", "k2b", "wrapper_host", "k3_atomics", "k6", "k6_instructions", "k5")
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+INSTR_PER_S = 33.5e12  # one instruction a lane and clock: 132 SMs x 128 lanes x 1.98 GHz
 SLEEP_CYCLES = 2_000_000  # ~1 ms of device clock queued ahead of each timed call
 
 
@@ -59,21 +80,29 @@ def time_ms(fn, reps: int = 20) -> float:
     return sorted(times)[reps // 2]
 
 
-def res_usage() -> dict:
+def _cuobjdump(flag: str, so_path) -> str:
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    return subprocess.run([tool, flag, str(so_path)], capture_output=True, text=True,
+                          check=True).stdout
+
+
+def res_usage(so_path=None) -> dict:
+    """Registers, stack, shared and local bytes a thread of the probed
+    kernels in ``so_path`` (default: the package's built library)."""
     from polyphonicformer_torch.ops.cuda import _lib
 
-    _lib.load()
-    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    out = subprocess.run([tool, "-res-usage", str(_lib.library_path())], capture_output=True,
-                         text=True, check=True).stdout
+    if so_path is None:
+        _lib.load()
+        so_path = _lib.library_path()
+    out = _cuobjdump("-res-usage", so_path)
     found, fn = {}, None
     for line in out.splitlines():
         m = re.search(r"Function (\S+):", line)
         if m:
             fn = m.group(1)
             continue
-        name = fn and re.search(r"\d+(upsample_int_bwd(?:_band)?|phase_fusion_kernel)(?:ILi(\d)E)?",
-                                fn)
+        name = fn and re.search(r"\d+(upsample_int_bwd(?:_band)?|phase_fusion_kernel|mask_loss_fwd"
+                                r"(?:_partial|_finish)?|mask_loss_bwd)(?:IL[ib](\d)E)?", fn)
         if name and "REG:" in line:
             key = name.group(1) + (f"<{name.group(2)}>" if name.group(2) else "")
             found[key] = {k: int(v) for k, v in re.findall(r"(REG|STACK|LOCAL|SHARED):(\d+)",
@@ -183,6 +212,251 @@ def k3_atomics(dev) -> dict:
     return {"design": design, "replaced_design": before}
 
 
+# K6 / K6b at the train step's two calls: the three refinement stages and
+# the rpn head
+K6_SHAPES = ((3, 111, 256, 512), (1, 100, 256, 512))
+
+
+def _k6_inputs(dev, shape):
+    import torch
+
+    n, q, h, w = shape
+    gen = torch.Generator(device=dev).manual_seed(6)
+    m = torch.randn(shape, generator=gen, device=dev) * 3
+    t = (torch.rand(shape, generator=gen, device=dev) < 0.2).float()
+    pos = (torch.rand((n, q), generator=gen, device=dev) < 0.3).float()
+    valid = (torch.rand((n, h, w), generator=gen, device=dev) < 0.9).float()
+    lbl = torch.randint(0, q, (n, h, w), generator=gen, device=dev, dtype=torch.int32)
+    lbl[torch.rand((n, h, w), generator=gen, device=dev) < 0.2] = 255
+    gs = torch.randn((n, 2), generator=gen, device=dev)
+    gd = torch.randn((n, 3, q), generator=gen, device=dev)
+    return m, t, pos, valid, lbl, gs, gd
+
+
+def k6(dev) -> dict:
+    import torch
+
+    from polyphonicformer_torch.ops.cuda import mask_loss
+
+    out = {}
+    for shape in K6_SHAPES:
+        m, t, pos, valid, lbl, gs, gd = _k6_inputs(dev, shape)
+        mr = m.clone().requires_grad_()
+        stats, dice = mask_loss.mask_loss_stats(mr, t, pos, valid, lbl)
+        (dm,) = torch.autograd.grad((stats, dice), mr, (gs, gd), retain_graph=True)
+        ws, wd = mask_loss.mask_loss_stats_plain(m, t, pos, valid, lbl)[:2]
+        want = mask_loss.mask_loss_grad_plain(m, t, pos, valid, lbl, gs, gd)
+        ok = (bool(((stats - ws).abs() <= 1e-5 * ws.abs()).all())
+              and bool(((dice - wd).abs() <= 1e-5 * wd.abs()).all())
+              and bool(((dm - want).abs() <= 1e-7 + 1e-5 * want.abs()).all()))
+        fwd_bytes = sum(x.numel() * 4 for x in (m, t, pos, valid, lbl, stats, dice))
+        bwd_bytes = sum(x.numel() * 4 for x in (m, t, pos, valid, lbl, gs, gd, dm))
+        out[str(shape)] = {
+            "within_tolerance": ok, "dm_bit_equal": bool(torch.equal(dm, want)),
+            "fwd_ms": time_ms(lambda: mask_loss.mask_loss_stats(mr, t, pos, valid, lbl)),
+            "bwd_ms": time_ms(lambda: torch.autograd.grad((stats, dice), mr, (gs, gd),
+                                                          retain_graph=True)),
+            "plain_fwd_ms": time_ms(lambda: mask_loss.mask_loss_stats_plain(m, t, pos, valid, lbl),
+                                    reps=3),
+            "plain_bwd_ms": time_ms(
+                lambda: mask_loss.mask_loss_grad_plain(m, t, pos, valid, lbl, gs, gd), reps=3),
+            "fwd_bound_us": fwd_bytes / HBM_BYTES_PER_S * 1e6,
+            "bwd_bound_us": bwd_bytes / HBM_BYTES_PER_S * 1e6}
+        del m, mr, t, dm, want, stats, dice
+        torch.cuda.empty_cache()
+    return out
+
+
+def sass_main_loop(sass: str) -> dict:
+    """Per kernel of a ``cuobjdump -sass`` listing: the instructions of its
+    largest loop (a backward branch and its target) and their opcodes."""
+    out = {}
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = part.split("\n")[0].strip()
+        ins = [(int(a, 16), t.strip()) for a, t in
+               re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;", part)]
+        body = []
+        for addr, text in ins:
+            b = re.search(r"\bBRA\s+(?:`\()?0x([0-9a-f]+)", text)
+            if b and int(b.group(1), 16) < addr:
+                loop = [t for a, t in ins if int(b.group(1), 16) <= a <= addr]
+                body = loop if len(loop) > len(body) else body
+        ops = [re.sub(r"^@!?U?P\w+\s+", "", t).split()[0].split(".")[0] for t in body]
+        out[name] = {"loop_instructions": len(body), "total_instructions": len(ins),
+                     **{op.lower(): ops.count(op) for op in ("MUFU", "SHFL", "LDG", "STG")}}
+    return out
+
+
+def k6_instructions(so_path=None, src: str | None = None) -> dict:
+    """K6's and K6b's main-loop instructions an element in ``so_path``
+    built from ``src`` (default: the package's library and source)."""
+    from polyphonicformer_torch.ops.cuda import _lib
+
+    if so_path is None:
+        _lib.load()
+        so_path = _lib.library_path()
+    sass = _cuobjdump("-sass", so_path)
+    src = (_lib.CSRC / "mask_loss.cu").read_text() if src is None else src
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    elements = {"mask_loss_fwd": const["GROUP"] * const["PPT"],
+                "mask_loss_bwd": const["DEPTH"] * const["PPT"]}
+    stage_elements = 3 * 111 * 256 * 512
+    out = {}
+    for fn, loop in sass_main_loop(sass).items():
+        m = re.search(r"\d+(mask_loss_fwd|mask_loss_bwd)ILb1E", fn)  # the float4 path
+        if not m:
+            continue
+        per = loop["loop_instructions"] / elements[m.group(1)]
+        out[m.group(1)] = {**loop, "elements_per_iteration": elements[m.group(1)],
+                           "instructions_per_element": per,
+                           "instruction_floor_us_stages": per * stage_elements / INSTR_PER_S * 1e6}
+    return out
+
+
+# the argmin chain of K5's Dijkstra steps alone: each step a block-wide
+# argmin (warp shuffles, one __syncthreads, every thread folds the warps'
+# results) whose input depends on the previous step's result
+_ARGMIN_CHAIN = r"""
+#include <cuda_runtime.h>
+struct ArgMin { float v; int j; };
+__device__ __forceinline__ ArgMin better(ArgMin a, ArgMin b) {
+  return (b.v < a.v || (b.v == a.v && b.j < a.j)) ? b : a;
+}
+__global__ void argmin_chain(const float* vals, int P, int steps, float* out) {
+  __shared__ ArgMin best[2][32];
+  const int t = threadIdx.x, nw = (blockDim.x + 31) / 32;
+  const float x = t < P ? vals[blockIdx.x * P + t] : 1e30f;
+  float carry = 0.f;
+  for (int s = 0; s < steps; ++s) {
+    ArgMin a = {t < P ? __fadd_rn(x, carry) : 1e30f, t};
+    for (int off = 16; off > 0; off >>= 1) {
+      ArgMin o;
+      o.v = __shfl_down_sync(0xffffffffu, a.v, off);
+      o.j = __shfl_down_sync(0xffffffffu, a.j, off);
+      a = better(a, o);
+    }
+    if ((t & 31) == 0) best[s & 1][t >> 5] = a;
+    __syncthreads();
+    ArgMin b = best[s & 1][0];
+    for (int w = 1; w < nw; ++w) b = better(b, best[s & 1][w]);
+    carry = b.v * 1e-30f;
+  }
+  if (t == 0) out[blockIdx.x] = carry;
+}
+extern "C" int argmin_chain_launch(const void* vals, int n, int P, int steps, void* out,
+                                   void* stream) {
+  argmin_chain<<<n, (P + 31) / 32 * 32, 0, (cudaStream_t)stream>>>((const float*)vals, P, steps,
+                                                                   (float*)out);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def _argmin_chain_us(dev, n: int, p: int) -> float:
+    """Device microseconds of one step of the argmin chain: n blocks of P
+    values, the difference of 20,000- and 2,000-step runs over 18,000."""
+    import ctypes
+
+    import torch
+
+    from polyphonicformer_torch.ops.cuda import _lib
+
+    _lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = _lib.BUILD_DIR / "argmin_chain.cu"
+    so = _lib.BUILD_DIR / "libargmin_chain.so"
+    src.write_text(_ARGMIN_CHAIN)
+    subprocess.run([_lib._nvcc(), *_lib.NVCC_FLAGS, "-shared", "-o", str(so), str(src)],
+                   check=True, capture_output=True)
+    fn = ctypes.CDLL(str(so)).argmin_chain_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    vals = torch.rand((n, p), device=dev)
+    out = torch.empty(n, device=dev)
+
+    def run(steps):
+        err = fn(vals.data_ptr(), n, p, steps, out.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"argmin_chain: CUDA error {err}")
+
+    return (time_ms(lambda: run(20000)) - time_ms(lambda: run(2000))) / 18000 * 1e3
+
+
+def _phase3_lsa_problems(dev):
+    """Phase 3's distribution of K5 problems: 16 of 64 GT x 100
+    predictions, 12-40 valid rows, some invalid rows between valid ones."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    costs = torch.randn((16, 64, 100), generator=gen, device=dev) * 2
+    counts = torch.randint(12, 41, (16,), generator=gen, device=dev)
+    valid = torch.arange(64, device=dev)[None] < counts[:, None]
+    holes = torch.rand((16, 64), generator=gen, device=dev) < 0.15
+    valid = valid & ~(holes & (torch.arange(64, device=dev) < 10))
+    costs = torch.where(valid[:, :, None], costs, 0.0)
+    return costs.contiguous(), valid
+
+
+def _train_step_lsa_problems(dev):
+    """The prepared costs and validity of the one K5 launch of a
+    full-width image_r50_2x train step (as phase 5 of chip_smoke.py: seeded
+    weights, synthetic batch), recorded at the solver's entry."""
+    import torch
+
+    from polyphonicformer_torch.configs import preset
+    from polyphonicformer_torch.data.synthetic import synthetic_batch
+    from polyphonicformer_torch.models import PolyphonicFormer
+    from polyphonicformer_torch.ops import hungarian
+    from polyphonicformer_torch.train.step import create_train_state, make_train_step
+
+    cfg = preset("image_r50_2x")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.device("meta"):
+        model = PolyphonicFormer(cfg.model)
+    state, opt = create_train_state(model, cfg, gen, steps_per_epoch=1000, device=dev)
+    step = make_train_step(state.model, cfg, opt)
+    batch = synthetic_batch(cfg.model, 1, (1024, 2048), seed=0, max_instances=24, device=dev)
+    seen, solve = [], hungarian.solve_lsa
+
+    def recording(costs, valid):
+        seen.append((costs.clone(), valid.clone()))
+        return solve(costs, valid)
+
+    hungarian.solve_lsa = recording
+    try:
+        step(state, batch)
+        torch.cuda.synchronize()
+    finally:
+        hungarian.solve_lsa = solve
+    return seen
+
+
+def k5(dev) -> dict:
+    import torch
+
+    from polyphonicformer_torch.ops.cuda import lsa
+
+    problems = {"phase3": [_phase3_lsa_problems(dev)],
+                "train_step": _train_step_lsa_problems(dev)}
+    out, step_us = {}, {}
+    for name, calls in problems.items():
+        for i, (costs, valid) in enumerate(calls):
+            n, g, p = costs.shape
+            if p not in step_us:
+                step_us[p] = _argmin_chain_us(dev, n, p)
+            steps = []
+            lsa.solve_lsa_plain(costs.cpu(), valid.cpu(), steps)
+            ms = time_ms(lambda: lsa.solve_lsa(costs, valid))
+            out[f"{name}[{i}]"] = {
+                "problems": [n, g, p], "valid_rows": valid.sum(dim=1).tolist(),
+                "dijkstra_steps": steps, "argmin_step_us": step_us[p],
+                "latency_bound_us": max(steps) * step_us[p], "k5_ms": ms,
+                "k5_us_per_step_of_longest": ms * 1e3 / max(steps),
+                "bytes_bound_us": sum(x.numel() * x.element_size()
+                                      for x in (costs, valid)) / HBM_BYTES_PER_S * 1e6}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -195,7 +469,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     fns = {"res_usage": res_usage, "k2b": lambda: k2b(dev),
-           "wrapper_host": lambda: wrapper_host(dev), "k3_atomics": lambda: k3_atomics(dev)}
+           "wrapper_host": lambda: wrapper_host(dev), "k3_atomics": lambda: k3_atomics(dev),
+           "k6": lambda: k6(dev), "k6_instructions": k6_instructions, "k5": lambda: k5(dev)}
     for part in args.parts.split(","):
         print(json.dumps({"part": part, **fns[part]()}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

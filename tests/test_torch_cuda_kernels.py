@@ -200,28 +200,39 @@ def test_lsa_equals_plain(dev, g_rows, p_cols):
     assert torch.equal(match_gt_to_preds_batched(costs, valid), got)  # deterministic
 
 
-@pytest.mark.parametrize("shape", [(2, 7, 16, 128), (3, 111, 37, 45), (1, 100, 64, 128)])
-def test_mask_loss_equals_plain(dev, shape):
-    """K6 / K6b: stats and dice within rtol 1e-5 of the plain version, dm
-    within rtol 1e-5 + atol 1e-7; any H and W; deterministic."""
+@pytest.mark.parametrize("shape,offset", [
+    ((2, 7, 16, 128), 0), ((3, 111, 37, 45), 0), ((1, 100, 64, 128), 0),
+    ((1, 100, 256, 512), 0),  # the rpn head's call in the train step
+    ((2, 9, 13, 7), 0),       # H*W not a multiple of 4 (as 37 x 45)
+    ((1, 7, 16, 128), 1),     # rows not 16-byte aligned: the scalar path
+])
+def test_mask_loss_equals_plain(dev, shape, offset):
+    """K6 / K6b: stats and dice within rtol 1e-5 of the plain version, the
+    forward's lse bit-equal to the plain version's (``_rank_terms``), dm
+    within rtol 1e-5 + atol 1e-7 of the plain gradient given that lse; any
+    H and W; deterministic."""
     n, q, h, w = shape
     gen = torch.Generator(device=dev).manual_seed(6)
     m = torch.randn(shape, generator=gen, device=dev) * 3
+    if offset:
+        m = torch.cat([torch.zeros(offset, device=dev), m.reshape(-1)])[offset:].view(shape)
+        assert not mask_loss.vector_path(h * w, m)
     t = (torch.rand(shape, generator=gen, device=dev) < 0.3).float()
     pos = (torch.rand((n, q), generator=gen, device=dev) < 0.5).float()
     valid = (torch.rand((n, h, w), generator=gen, device=dev) < 0.9).float()
     lbl = torch.randint(-1, q + 2, (n, h, w), generator=gen, device=dev, dtype=torch.int32)
     lbl[torch.rand((n, h, w), generator=gen, device=dev) < 0.2] = 255
-    stats, dice = mask_loss._stats_cuda(m, t, pos, valid, lbl)
-    ws, wd = mask_loss.mask_loss_stats_plain(m, t, pos, valid, lbl)
+    stats, dice, lse = mask_loss._stats_cuda(m, t, pos, valid, lbl)
+    ws, wd, wl = mask_loss.mask_loss_stats_plain(m, t, pos, valid, lbl)
     torch.testing.assert_close(stats, ws, rtol=1e-5, atol=1e-7 * h * w)
     torch.testing.assert_close(dice, wd, rtol=1e-5, atol=1e-7 * h * w)
+    assert torch.equal(lse, wl) and torch.equal(lse, mask_loss._rank_terms(m, lbl)[0])
     again = mask_loss._stats_cuda(m, t, pos, valid, lbl)
-    assert torch.equal(again[0], stats) and torch.equal(again[1], dice)
+    assert all(torch.equal(a, b) for a, b in zip(again, (stats, dice, lse)))
     gs = torch.randn((n, 2), generator=gen, device=dev)
     gd = torch.randn((n, 3, q), generator=gen, device=dev)
-    dm = mask_loss._grad_cuda(m, t, pos, valid, lbl, gs, gd)
-    torch.testing.assert_close(dm, mask_loss.mask_loss_grad_plain(m, t, pos, valid, lbl, gs, gd),
+    dm = mask_loss._grad_cuda(m, t, pos, valid, lbl, gs, gd, lse)
+    torch.testing.assert_close(dm, mask_loss.mask_loss_grad_plain(m, t, pos, valid, lbl, gs, gd, wl),
                                rtol=1e-5, atol=1e-7)
 
 

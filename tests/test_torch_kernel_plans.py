@@ -1,9 +1,13 @@
-"""What the port's K1, K2 and K3 wrappers hand their CUDA kernels, checked
-on the CPU: K2's phase weights and K3's phase taps against the JAX
+"""What the port's K1, K2, K3 and K6 wrappers hand their CUDA kernels,
+checked on the CPU: K2's phase weights and K3's phase taps against the JAX
 package's, K3's launch plan, K1's launch plan,
-K1's threshold band, and a numpy mirror of K1's exact three-way bf16 split
-of f32 features (pooling with it against JAX ``masked_pool``).  No card, no
-compile."""
+K1's threshold band, a numpy mirror of K1's exact three-way bf16 split
+of f32 features (pooling with it against JAX ``masked_pool``), K6's launch
+plan and vector path, and numpy mirrors of K6's log1p polynomial and its
+warp reduction.  No card, no compile."""
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -13,7 +17,7 @@ import torch
 from polyphonicformer_tpu.ops.pallas.mask_pool import masked_pool as jax_masked_pool
 from polyphonicformer_tpu.ops.pallas.phase_fusion import _phase_taps
 from polyphonicformer_tpu.ops.resize import _phase_weights
-from polyphonicformer_torch.ops.cuda import mask_pool, phase_fusion, upsample2
+from polyphonicformer_torch.ops.cuda import _lib, mask_loss, mask_pool, phase_fusion, upsample2
 
 H100_SMS = 132
 
@@ -197,3 +201,127 @@ def test_threshold_band_decides_as_the_sigmoid(thr):
 def test_threshold_band_none_near_the_ends():
     for thr in (0.0, 1.0, 5e-6, 1 - 5e-6):
         assert mask_pool.threshold_band(thr) == (-np.inf, np.inf)
+
+
+def _mask_loss_constants() -> dict:
+    """The ``constexpr int`` constants of ``csrc/mask_loss.cu``."""
+    src = (_lib.CSRC / "mask_loss.cu").read_text()
+    return {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+
+
+def test_mask_loss_constants_match_the_source():
+    c = _mask_loss_constants()
+    assert (mask_loss.THREADS, mask_loss.PPT, mask_loss.ROWS_PER_GROUP) == (
+        c["THREADS"], c["PPT"], c["ROWS_PER_GROUP"])
+    assert c["GROUP"] % c["DEPTH"] == 0 and 32 % c["GROUP"] == 0
+
+
+@pytest.mark.parametrize("n,q,hw", [
+    (3, 111, 256 * 512),  # the three refinement stages of the train step
+    (1, 100, 256 * 512),  # the rpn head
+    (3, 111, 37 * 45),    # the card test's ragged shape
+    (2, 7, 16 * 128),
+    (1, 5, 64 * 300),     # two groups, the second short
+    (1, 1, 1),
+    (2, 3, 1024 * 2048),  # 2048 blocks, 128 groups
+])
+def test_mask_loss_launch_plan(n, q, hw):
+    """Blocks cover the pixels in tiles of THREADS x PPT, groups cover the
+    blocks, and the scratch holds a partial row a block, a row a group and
+    the tickets; at the train step's shapes the forward runs in one wave of
+    FWD_BLOCKS_PER_SM blocks an SM."""
+    plan = mask_loss.launch_plan(n, q, hw)
+    tile = mask_loss.THREADS * mask_loss.PPT
+    assert (plan.blocks - 1) * tile < hw <= plan.blocks * tile
+    rpg = mask_loss.ROWS_PER_GROUP
+    assert (plan.groups - 1) * rpg < plan.blocks <= plan.groups * rpg
+    assert plan.scratch_floats == n * (plan.blocks + plan.groups) * (2 + 3 * q) + n * (plan.groups + 1)
+    if hw == 256 * 512:
+        assert n * plan.blocks <= _mask_loss_constants()["FWD_BLOCKS_PER_SM"] * H100_SMS
+
+
+def test_mask_loss_vector_path():
+    """float4 loads only where H*W is a multiple of 4 and every row starts
+    on 16 bytes."""
+    x = torch.zeros(64 * 16 + 4)
+    assert mask_loss.vector_path(64, x[:64], x[4:68])
+    assert not mask_loss.vector_path(63, x[:63])
+    assert not mask_loss.vector_path(64, x[:64], x[1:65])
+
+
+def test_log1p_polynomial_as_close_as_log1pf():
+    """``log1p_01`` (Horner with fused multiply-adds, then times e) lies
+    within 2e-7 relative of log1p over e in [0, 1], as f32 ``log1p`` does."""
+    src = (_lib.CSRC / "mask_loss.cu").read_text()
+    body = src[src.index("float log1p_01(float e)"):]
+    body = body[:body.index("return p * e;")]
+    coeffs = [float(c) for c in re.findall(r"(-?\d+\.\d*)f", body)]
+    assert len(coeffs) == 9 and coeffs[-1] == 1.0
+    e = np.concatenate([np.linspace(0, 1, 400001), np.geomspace(1e-30, 1, 20001)]).astype(np.float32)
+    p = np.full(e.shape, np.float32(coeffs[0]))
+    for c in coeffs[1:]:  # an f32 fma: the f64 product of f32 values is exact
+        p = (p.astype(np.float64) * e + np.float32(c)).astype(np.float32)
+    got = (p * e).astype(np.float32).astype(np.float64)
+    want = np.log1p(e.astype(np.float64))
+    rel = np.abs(got - want) / np.where(want > 0, want, 1.0)
+    assert rel.max() <= 2e-7
+    assert got[0] == 0.0 and np.all(got >= 0)
+
+
+def _reduce_scatter(v: np.ndarray) -> np.ndarray:
+    """``reduce_scatter<N>`` of csrc/mask_loss.cu on a (32 lanes, N) array."""
+    lanes = np.arange(32)
+    n = v.shape[1]
+    v = v.copy()
+    half, off = n // 2, 16
+    while half >= 1:
+        hi = (lanes & off) != 0
+        for i in range(half):
+            send = np.where(hi, v[:, i], v[:, i + half])
+            keep = np.where(hi, v[:, i + half], v[:, i])
+            v[:, i] = keep + send[lanes ^ off]
+        half, off = half // 2, off // 2
+    s = v[:, 0].copy()
+    off = 16 // n
+    while off >= 1:
+        s = s + s[lanes ^ off]
+        off //= 2
+    return s
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+def test_warp_reduce_scatter_gives_each_lane_one_total(n):
+    """After the transposed shuffle reduction lane L holds the warp's total
+    of value L // (32 / n), in every one of those 32 / n lanes."""
+    v = np.random.RandomState(n).randint(-1000, 1000, (32, n)).astype(np.float64)
+    got = _reduce_scatter(v)
+    assert np.array_equal(got, v.sum(axis=0)[np.arange(32) // (32 // n)])
+
+
+def test_lsa_plain_counts_dijkstra_steps():
+    """The plain solver counts each problem's Dijkstra steps (K5's serial
+    chain): one a valid row where every row's best column is free, more
+    where rows compete for a column; invalid rows take none."""
+    from polyphonicformer_torch.ops.cuda import lsa
+
+    diag = torch.full((1, 4, 6), 5.0)
+    diag[0, torch.arange(4), torch.arange(4)] = 0.0
+    steps = []
+    lsa.solve_lsa_plain(diag, torch.tensor([[True, True, False, True]]), steps)
+    assert steps == [3]
+    clash = torch.tensor([[[0.0, 1.0, 9.0], [0.0, 2.0, 9.0]]])
+    steps = []
+    got = lsa.solve_lsa_plain(clash, torch.tensor([[True, True]]), steps)
+    assert got.tolist() == [[1, 0]] and steps[0] > 2
+
+
+def test_mask_loss_variants_edit_the_source():
+    """``tools/mask_loss_variants.py``: every edit finds its text once in
+    csrc/mask_loss.cu, and every variant but the design differs from it."""
+    from polyphonicformer_torch.tools import mask_loss_variants
+
+    srcs = mask_loss_variants.sources()
+    design = (_lib.CSRC / "mask_loss.cu").read_text()
+    assert srcs["design"] == design
+    assert all(s != design for name, s in srcs.items() if name != "design")
+    assert len(set(srcs.values())) == len(srcs)

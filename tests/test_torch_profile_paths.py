@@ -18,6 +18,8 @@ def test_busy_is_the_union_of_intervals(intervals, want):
 
 @pytest.mark.parametrize("name,cls", [
     ("(anonymous namespace)::mask_loss_bwd(float const*, ...)", "port"),
+    ("void (anonymous namespace)::mask_loss_fwd<true>(float const*, ...)", "port"),
+    ("void (anonymous namespace)::mask_loss_bwd<false>(float const*, ...)", "port"),
     ("upsample_int_fwd(float const*, float*, long long, int, int, int, int)", "port"),
     ("void (anonymous namespace)::mask_pool_mma<__nv_bfloat16, float>((anonymous namespace)::Params)",
      "port"),
