@@ -411,6 +411,7 @@ def check_train_kernels(dev, gen) -> list[dict]:
 
     from polyphonicformer_torch.ops.cuda import lsa, upsample2
     from polyphonicformer_torch.ops.hungarian import match_gt_to_preds_batched
+    from polyphonicformer_torch.tools import kernel_probe
 
     rows = []
     # K2b: gradients of the x2 upsamples of (1+3 stages x 111) mask logits
@@ -434,24 +435,32 @@ def check_train_kernels(dev, gen) -> list[dict]:
         **_bound(_nbytes(g444, dx444))))
 
     # K5: 16 seeded (64 GT x 100 predictions) problems, 12-40 valid rows
-    # each, some invalid rows between valid ones
+    # each, some invalid rows between valid ones; raw costs, handed over as
+    # the assignment hands them: a transposed view of (16, 100, 64)
     costs = torch.randn((16, 64, 100), generator=gen, device=dev) * 2
     counts = torch.randint(12, 41, (16,), generator=gen, device=dev)
     valid = torch.arange(64, device=dev)[None] < counts[:, None]
     holes = torch.rand((16, 64), generator=gen, device=dev) < 0.15
     valid = valid & ~(holes & (torch.arange(64, device=dev) < 10))
-    got = match_gt_to_preds_batched(costs, valid)
+    raw = costs.transpose(1, 2).contiguous().transpose(1, 2)
+    got = match_gt_to_preds_batched(raw, valid)
     torch.cuda.synchronize()
-    want = match_gt_to_preds_batched(costs.cpu(), valid.cpu())
+    steps = []
+    want = lsa.solve_lsa_plain(raw.cpu(), valid.cpu(), steps)
     _check("lsa", torch.equal(got.cpu(), want), "assignments differ from the plain solver")
-    prepared = torch.nan_to_num(torch.where(valid[:, :, None], costs, 0.0), nan=1e8,
-                                posinf=1e8, neginf=-1e8)
+    _check("lsa", torch.equal(lsa.solve_lsa(raw, valid), got), "two launches differ")
+    # its latency bound: the longest problem's Dijkstra steps x one warp-wide
+    # argmin step (tools/kernel_probe.py)
+    step_us = kernel_probe.warp_step_us(dev, 16, 100)
+    ms = _time_ms(lambda: lsa.solve_lsa(raw, valid))
     rows.append(dict(
         name="lsa", route="cuda", source="polyphonicformer_torch/csrc/lsa.cu",
-        replaces="polyphonicformer_tpu/ops/pallas/lsa.py:133", max_abs_err=0.0,
-        ms=_time_ms(lambda: lsa.solve_lsa(prepared, valid)),
-        plain_ms=_time_ms(lambda: lsa.solve_lsa_plain(prepared, valid), reps=3),
-        library_ms=None, **_bound(_nbytes(prepared, valid, got))))
+        replaces="polyphonicformer_tpu/ops/pallas/lsa.py:133", max_abs_err=0.0, ms=ms,
+        plain_ms=_time_ms(lambda: lsa.solve_lsa_plain(raw, valid), reps=3),
+        library_ms=None, **_bound(_nbytes(raw, valid, got)),
+        dijkstra_steps_longest=max(steps), warp_argmin_step_us=step_us,
+        latency_bound_us=max(steps) * step_us,
+        latency_bound_share=max(steps) * step_us / (ms * 1e3)))
 
     # K6 / K6b on the three refinement stages' mask volume and on the rpn
     # head's, the train step's two calls
@@ -565,6 +574,11 @@ def main() -> int:
         print(f"[3 kernel] {r['name']}: max_abs_err {r['max_abs_err']} | kernel {r['ms']:.4f} ms "
               f"| plain {r['plain_ms']:.4f} ms | library {lib} | bound {r['bound_us']:.2f} us "
               f"({r['bound_by']})", flush=True)
+        if "latency_bound_us" in r:
+            print(f"[3 kernel] {r['name']}: latency bound {r['latency_bound_us']:.2f} us "
+                  f"({r['dijkstra_steps_longest']} Dijkstra steps x {r['warp_argmin_step_us']:.4f}"
+                  f" us a warp argmin step), {100 * r['latency_bound_share']:.1f}% of the kernel's "
+                  f"time", flush=True)
 
     serve_launches, slice_info = run_slice(dev)
     print(f"[4 slice] {json.dumps(slice_info)}", flush=True)

@@ -1,11 +1,13 @@
 """Exact linear-sum assignment on the device; mirrors
 ``polyphonicformer_tpu/ops/hungarian.py``.
 
-:func:`match_gt_to_preds_batched` prepares the costs as the JAX package
-does (invalid GT rows set to 0, non-finite entries clamped to +-1e8) and
-solves every problem at once: on a CUDA tensor in the K5 kernel, on a CPU
-tensor in its plain version (``ops/cuda/lsa.py``).  The solution matches
-scipy's rectangular ``linear_sum_assignment``, ties to the lowest column.
+:func:`match_gt_to_preds_batched` solves every problem at once, with the
+costs prepared as the JAX package prepares them (invalid GT rows set to 0,
+non-finite entries clamped to +-1e8): on a CUDA tensor the K5 kernel reads
+the raw costs through their strides and prepares them itself, the only
+launch; a CPU tensor takes its plain version (``ops/cuda/lsa.py``).  The
+solution matches scipy's rectangular ``linear_sum_assignment``, ties to the
+lowest column.
 """
 from __future__ import annotations
 
@@ -21,9 +23,7 @@ def match_gt_to_preds_batched(cost_gt_pred: torch.Tensor,
     n, g, p = cost_gt_pred.shape
     if g > p:
         raise ValueError(f"more GT slots ({g}) than predictions ({p})")
-    cost = torch.where(gt_valid[:, :, None], cost_gt_pred.float(), 0.0)
-    cost = torch.nan_to_num(cost, nan=1e8, posinf=1e8, neginf=-1e8)
-    return solve_lsa(cost.contiguous(), gt_valid.contiguous())
+    return solve_lsa(cost_gt_pred.float(), gt_valid)
 
 
 def gt2pred_to_assignment(gt2pred: torch.Tensor, num_preds: int) -> torch.Tensor:

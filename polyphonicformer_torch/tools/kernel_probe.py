@@ -6,8 +6,8 @@ Parts (all by default), one JSON line each, then the card's name and power
 limit:
 
 * ``res_usage``: registers, stack and local (spill) bytes a thread of the
-  K2b, K3, K6 and K6b kernels of the built library, from ``cuobjdump
-  -res-usage``;
+  K2b, K3, K5 (each CPL instance), K6 and K6b kernels of the built
+  library, from ``cuobjdump -res-usage``;
 * ``k6``: K6 and K6b through the public ``mask_loss_stats`` and autograd's
   backward at the train step's two shapes (the stages' (3, 111, 256, 512)
   and the rpn head's (1, 100, 256, 512)): within the tolerances of the
@@ -19,13 +19,20 @@ limit:
   per element (a loop iteration covers GROUP or DEPTH queries of PPT
   pixels, constants read from the source), and the floor they imply at
   the stages' shape at 33.5 T instructions/s;
-* ``k5``: K5's latency bound: the Dijkstra steps of each problem (counted
-  by the plain solver) at phase 3's distribution (16 problems of 64 x 100)
-  and at the problems of one full-width ``image_r50_2x`` train step (seeded
-  weights and batch, as phase 5), times the least time of one step, read
-  from a probe kernel that runs only a chain of dependent block-wide
-  argmins of P values with one ``__syncthreads`` each; beside K5's own time
-  at those problems;
+* ``k5``: K5's latency bound and its costs: the Dijkstra steps of each
+  problem (counted by the plain solver) at phase 3's distribution (16
+  problems of 64 x 100) and at the problems of one full-width
+  ``image_r50_2x`` train step (seeded weights and batch, as phase 5,
+  recorded at the solver's entry: the raw strided costs where the solver
+  prepares them itself), times the least time of one step: one warp-wide
+  argmin of P values (CPL a lane, no barrier), the faster of two probe
+  kernels that run only a chain of them, one over a packed 64-bit key in
+  five ``__shfl_xor_sync`` rounds, one in two ``__reduce_min_sync`` (K5's
+  form); beside the old bound (a block-wide argmin with one
+  ``__syncthreads`` a step, the design K5 had before) and K5's
+  own time; and K5's cost a row apart from its cost a step: K5 on the
+  same shapes and valid rows with no valid row (``empty_ms``) and with
+  diagonal costs, where each row takes one step (``diagonal_ms``);
 * ``k2b``: K2b (``upsample_int_bwd``) through its wrapper at the train
   step's four x2 gradients and at two x4 gradients (``K2B_SHAPES``):
   bit-equal to the plain version, device ms (CUDA events, median of 20)
@@ -41,7 +48,7 @@ limit:
   count for the kernel K3 had before (blocks of one stride-4 row x 128
   stride-4 columns, one column atomic per counted pixel).
 
-The parts ``res_usage``, ``k2b``, ``wrapper_host`` and ``k6`` use only
+The parts ``res_usage``, ``k2b``, ``wrapper_host``, ``k6`` and ``k5`` use only
 entry points that earlier versions of the package have too, so the tool can
 be copied into an older checkout and run there to compare the two.
 """
@@ -102,7 +109,7 @@ def res_usage(so_path=None) -> dict:
             fn = m.group(1)
             continue
         name = fn and re.search(r"\d+(upsample_int_bwd(?:_band)?|phase_fusion_kernel|mask_loss_fwd"
-                                r"(?:_partial|_finish)?|mask_loss_bwd)(?:IL[ib](\d)E)?", fn)
+                                r"(?:_partial|_finish)?|mask_loss_bwd|lsa_kernel)(?:IL[ib](\d+)E)?", fn)
         if name and "REG:" in line:
             key = name.group(1) + (f"<{name.group(2)}>" if name.group(2) else "")
             found[key] = {k: int(v) for k, v in re.findall(r"(REG|STACK|LOCAL|SHARED):(\d+)",
@@ -313,16 +320,21 @@ def k6_instructions(so_path=None, src: str | None = None) -> dict:
     return out
 
 
-# the argmin chain of K5's Dijkstra steps alone: each step a block-wide
-# argmin (warp shuffles, one __syncthreads, every thread folds the warps'
-# results) whose input depends on the previous step's result
-_ARGMIN_CHAIN = r"""
+# the argmin chains of K5's Dijkstra steps alone, each step's input depending
+# on the previous step's result.  "block": the design K5 had before, a
+# block-wide argmin (warp shuffles, one __syncthreads, every thread folds
+# the warps' results).  The least a step needs is one warp-wide argmin of P
+# values, CPL a lane, over csrc/lsa.cu's key (the ordered value, then the
+# column), no barrier: "butterfly" takes the least 64-bit key in five xor
+# shuffle rounds, "redux" in two __reduce_min_sync (the value, then the
+# column among the lanes that hold it), as K5 does.
+_ARGMIN_CHAINS = r"""
 #include <cuda_runtime.h>
 struct ArgMin { float v; int j; };
 __device__ __forceinline__ ArgMin better(ArgMin a, ArgMin b) {
   return (b.v < a.v || (b.v == a.v && b.j < a.j)) ? b : a;
 }
-__global__ void argmin_chain(const float* vals, int P, int steps, float* out) {
+__global__ void block_chain(const float* vals, int P, int steps, float* out) {
   __shared__ ArgMin best[2][32];
   const int t = threadIdx.x, nw = (blockDim.x + 31) / 32;
   const float x = t < P ? vals[blockIdx.x * P + t] : 1e30f;
@@ -343,31 +355,111 @@ __global__ void argmin_chain(const float* vals, int P, int steps, float* out) {
   }
   if (t == 0) out[blockIdx.x] = carry;
 }
-extern "C" int argmin_chain_launch(const void* vals, int n, int P, int steps, void* out,
-                                   void* stream) {
-  argmin_chain<<<n, (P + 31) / 32 * 32, 0, (cudaStream_t)stream>>>((const float*)vals, P, steps,
-                                                                   (float*)out);
+// the lane's first least value of its CPL slots: (ordered value, column)
+template <int CPL>
+__device__ __forceinline__ void lane_min(const float* x, float carry, int P, int lane,
+                                         unsigned& m, unsigned& j) {
+  m = ~0u;
+  j = 0;
+#pragma unroll
+  for (int s = 0; s < CPL; ++s) {
+    const unsigned b = __float_as_uint(__fadd_rn(__fadd_rn(x[s], carry), 0.f));
+    const unsigned o = s * 32 + lane < P ? ((b & 0x80000000u) ? ~b : (b | 0x80000000u)) : ~0u;
+    if (o < m) {
+      m = o;
+      j = s * 32 + lane;
+    }
+  }
+}
+__device__ __forceinline__ float from_ordered(unsigned m) {
+  return __uint_as_float((m & 0x80000000u) ? (m & 0x7fffffffu) : ~m);
+}
+template <int CPL, bool REDUX>
+__global__ void warp_chain(const float* vals, int P, int steps, float* out) {
+  const int lane = threadIdx.x;
+  float x[CPL];
+#pragma unroll
+  for (int s = 0; s < CPL; ++s) x[s] = s * 32 + lane < P ? vals[blockIdx.x * P + s * 32 + lane] : 0.f;
+  float carry = 0.f;
+  for (int t = 0; t < steps; ++t) {
+    unsigned m, j;
+    lane_min<CPL>(x, carry, P, lane, m, j);
+    if (REDUX) {
+      const unsigned mm = __reduce_min_sync(0xffffffffu, m);
+      j = __reduce_min_sync(0xffffffffu, m == mm ? j : ~0u);
+      m = mm;
+    } else {
+      unsigned long long key = ((unsigned long long)m << 32) | j;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const unsigned long long o = __shfl_xor_sync(0xffffffffu, key, off);
+        key = o < key ? o : key;
+      }
+      m = (unsigned)(key >> 32);
+      j = (unsigned)key;
+    }
+    carry = from_ordered(m) * 1e-30f + (float)(j & 1u) * 1e-38f;
+  }
+  if (lane == 0) out[blockIdx.x] = carry;
+}
+template <bool REDUX>
+int warp_chain_launch(const float* v, int n, int P, int steps, float* o, cudaStream_t st) {
+  if (P <= 32) warp_chain<1, REDUX><<<n, 32, 0, st>>>(v, P, steps, o);
+  else if (P <= 64) warp_chain<2, REDUX><<<n, 32, 0, st>>>(v, P, steps, o);
+  else if (P <= 128) warp_chain<4, REDUX><<<n, 32, 0, st>>>(v, P, steps, o);
+  else if (P <= 256) warp_chain<8, REDUX><<<n, 32, 0, st>>>(v, P, steps, o);
+  else if (P <= 512) warp_chain<16, REDUX><<<n, 32, 0, st>>>(v, P, steps, o);
+  else warp_chain<32, REDUX><<<n, 32, 0, st>>>(v, P, steps, o);
   return (int)cudaGetLastError();
 }
+extern "C" int block_chain_launch(const void* vals, int n, int P, int steps, void* out,
+                                  void* stream) {
+  block_chain<<<n, (P + 31) / 32 * 32, 0, (cudaStream_t)stream>>>((const float*)vals, P, steps,
+                                                                  (float*)out);
+  return (int)cudaGetLastError();
+}
+extern "C" int butterfly_chain_launch(const void* vals, int n, int P, int steps, void* out,
+                                      void* stream) {
+  return warp_chain_launch<false>((const float*)vals, n, P, steps, (float*)out,
+                                  (cudaStream_t)stream);
+}
+extern "C" int redux_chain_launch(const void* vals, int n, int P, int steps, void* out,
+                                  void* stream) {
+  return warp_chain_launch<true>((const float*)vals, n, P, steps, (float*)out,
+                                 (cudaStream_t)stream);
+}
 """
+_chains = None
 
 
-def _argmin_chain_us(dev, n: int, p: int) -> float:
-    """Device microseconds of one step of the argmin chain: n blocks of P
-    values, the difference of 20,000- and 2,000-step runs over 18,000."""
+WARP_KINDS = ("butterfly", "redux")
+
+
+def warp_step_us(dev, n: int, p: int) -> float:
+    """The least time of one warp-wide argmin step: the faster chain."""
+    return min(argmin_step_us(dev, k, n, p) for k in WARP_KINDS)
+
+
+def argmin_step_us(dev, kind: str, n: int, p: int) -> float:
+    """Device microseconds of one step of the ``kind`` ("block",
+    "butterfly" or "redux") argmin chain over n problems of P values: the
+    difference of 20,000- and 2,000-step runs over 18,000."""
     import ctypes
 
     import torch
 
     from polyphonicformer_torch.ops.cuda import _lib
 
-    _lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src = _lib.BUILD_DIR / "argmin_chain.cu"
-    so = _lib.BUILD_DIR / "libargmin_chain.so"
-    src.write_text(_ARGMIN_CHAIN)
-    subprocess.run([_lib._nvcc(), *_lib.NVCC_FLAGS, "-shared", "-o", str(so), str(src)],
-                   check=True, capture_output=True)
-    fn = ctypes.CDLL(str(so)).argmin_chain_launch
+    global _chains
+    if _chains is None:
+        _lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src = _lib.BUILD_DIR / "argmin_chains.cu"
+        so = _lib.BUILD_DIR / "libargmin_chains.so"
+        src.write_text(_ARGMIN_CHAINS)
+        subprocess.run([_lib._nvcc(), *_lib.NVCC_FLAGS, "-shared", "-o", str(so), str(src)],
+                       check=True, capture_output=True)
+        _chains = ctypes.CDLL(str(so))
+    fn = getattr(_chains, f"{kind}_chain_launch")
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p]
     vals = torch.rand((n, p), device=dev)
@@ -377,7 +469,7 @@ def _argmin_chain_us(dev, n: int, p: int) -> float:
         err = fn(vals.data_ptr(), n, p, steps, out.data_ptr(),
                  torch.cuda.current_stream().cuda_stream)
         if err:
-            raise RuntimeError(f"argmin_chain: CUDA error {err}")
+            raise RuntimeError(f"{kind}_chain: CUDA error {err}")
 
     return (time_ms(lambda: run(20000)) - time_ms(lambda: run(2000))) / 18000 * 1e3
 
@@ -398,9 +490,11 @@ def _phase3_lsa_problems(dev):
 
 
 def _train_step_lsa_problems(dev):
-    """The prepared costs and validity of the one K5 launch of a
-    full-width image_r50_2x train step (as phase 5 of chip_smoke.py: seeded
-    weights, synthetic batch), recorded at the solver's entry."""
+    """The costs and validity of the one K5 launch of a full-width
+    image_r50_2x train step (as phase 5 of chip_smoke.py: seeded weights,
+    synthetic batch), recorded at the solver's entry with their strides:
+    the raw transposed view where the kernel prepares the costs itself,
+    the prepared contiguous costs in a tree that prepares them before it."""
     import torch
 
     from polyphonicformer_torch.configs import preset
@@ -432,6 +526,14 @@ def _train_step_lsa_problems(dev):
 
 
 def k5(dev) -> dict:
+    """K5 at phase 3's and the train step's problems: its time beside its
+    latency bound (the longest problem's Dijkstra steps x one warp argmin
+    step; the old block-argmin bound beside it), and its cost a row
+    (``us_per_row``: the diagonal problems, one step a row, less the
+    problems with no valid row, over the most valid rows of a problem)
+    apart from its cost a further step (``us_per_extra_step``: the recorded
+    problems less the diagonal ones, over the longest problem's steps
+    beyond one a row)."""
     import torch
 
     from polyphonicformer_torch.ops.cuda import lsa
@@ -443,15 +545,31 @@ def k5(dev) -> dict:
         for i, (costs, valid) in enumerate(calls):
             n, g, p = costs.shape
             if p not in step_us:
-                step_us[p] = _argmin_chain_us(dev, n, p)
+                step_us[p] = {k: argmin_step_us(dev, k, n, p) for k in ("block", *WARP_KINDS)}
+                step_us[p]["warp"] = min(step_us[p][k] for k in WARP_KINDS)
             steps = []
             lsa.solve_lsa_plain(costs.cpu(), valid.cpu(), steps)
+            rows = valid.sum(dim=1).tolist()
+            diag = torch.ones_like(costs)  # the same strides
+            diag.diagonal(dim1=1, dim2=2).zero_()
             ms = time_ms(lambda: lsa.solve_lsa(costs, valid))
+            empty_ms = time_ms(lambda: lsa.solve_lsa(costs, torch.zeros_like(valid)))
+            diag_ms = time_ms(lambda: lsa.solve_lsa(diag, valid))
+            longest = max(range(n), key=lambda k: steps[k])
+            extra = steps[longest] - rows[longest]
+            bound_us = max(steps) * step_us[p]["warp"]
             out[f"{name}[{i}]"] = {
-                "problems": [n, g, p], "valid_rows": valid.sum(dim=1).tolist(),
-                "dijkstra_steps": steps, "argmin_step_us": step_us[p],
-                "latency_bound_us": max(steps) * step_us[p], "k5_ms": ms,
+                "problems": [n, g, p], "valid_rows": rows, "dijkstra_steps": steps,
+                "warp_argmin_step_us": step_us[p]["warp"],
+                "butterfly_step_us": step_us[p]["butterfly"], "redux_step_us": step_us[p]["redux"],
+                "latency_bound_us": bound_us,
+                "block_argmin_step_us": step_us[p]["block"],
+                "block_latency_bound_us": max(steps) * step_us[p]["block"],
+                "k5_ms": ms, "share_of_latency_bound": bound_us / (ms * 1e3),
                 "k5_us_per_step_of_longest": ms * 1e3 / max(steps),
+                "empty_ms": empty_ms, "diagonal_ms": diag_ms,
+                "us_per_row": (diag_ms - empty_ms) * 1e3 / max(max(rows), 1),
+                "us_per_extra_step": (ms - diag_ms) * 1e3 / extra if extra else None,
                 "bytes_bound_us": sum(x.numel() * x.element_size()
                                       for x in (costs, valid)) / HBM_BYTES_PER_S * 1e6}
     return out

@@ -179,17 +179,20 @@ def test_upsample_bwd_main_shapes_bit_equal(dev, n):
                        upsample2.upsample_int_bwd_plain(grad, 2, 2))
 
 
-@pytest.mark.parametrize("g_rows,p_cols", [(64, 100), (12, 20), (40, 40), (7, 130)])
+@pytest.mark.parametrize("g_rows,p_cols", [(64, 100), (12, 20), (40, 40), (7, 130), (1, 1),
+                                           (32, 32), (33, 33), (64, 128), (20, 300),
+                                           (16, 1024)])
 def test_lsa_equals_plain(dev, g_rows, p_cols):
     """K5: the same assignments as the plain solver, with ties, clamped
-    non-finite costs and invalid rows in the middle."""
+    non-finite costs and invalid rows in the middle; the shapes run every
+    CPL instance (1, 2, 4, 8, 16 and 32 columns a lane)."""
     from polyphonicformer_torch.ops.hungarian import match_gt_to_preds_batched
 
     gen = torch.Generator(device=dev).manual_seed(5)
     costs = torch.randn((6, g_rows, p_cols), generator=gen, device=dev) * 3
     costs[:, :, ::7] = costs[:, :, ::7].round()
     costs[0] = costs[0].round()
-    costs[4, 2, 0] = float("nan")
+    costs[4, min(2, g_rows - 1), 0] = float("nan")
     valid = torch.rand((6, g_rows), generator=gen, device=dev) > 0.4
     valid[1] = False
     valid[2] = True
@@ -198,6 +201,40 @@ def test_lsa_equals_plain(dev, g_rows, p_cols):
     want = match_gt_to_preds_batched(costs.cpu(), valid.cpu())
     assert torch.equal(got.cpu(), want)
     assert torch.equal(match_gt_to_preds_batched(costs, valid), got)  # deterministic
+
+
+@pytest.mark.parametrize("g_rows,p_cols", [(64, 100), (24, 40), (33, 70), (16, 1024)])
+def test_lsa_transposed_raw_costs_and_signed_zeros(dev, g_rows, p_cols):
+    """K5 on raw costs as the assignment hands them, a transposed view of
+    (N, P, M), with -0.0 tied against +0.0, +-inf and NaN; launched once
+    (the preparation happens in the kernel), equal to the plain solver."""
+    from polyphonicformer_torch.ops.hungarian import match_gt_to_preds_batched
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    costs = (torch.randn((6, p_cols, g_rows), generator=gen, device=dev) * 3).round()
+    costs[:, ::2] = torch.where(costs[:, ::2] == 0, -0.0, costs[:, ::2])
+    costs[:, 1::3] = torch.where(costs[:, 1::3] == 0, 0.0, costs[:, 1::3])
+    costs[2] = torch.where(costs[2] < 1, -0.0, 0.0)
+    costs[4, 0, 0], costs[4, 1, -1], costs[4, -1, 1] = float("nan"), float("inf"), -float("inf")
+    view = costs.transpose(1, 2)
+    valid = torch.rand((6, g_rows), generator=gen, device=dev) > 0.3
+    valid[3, ::3] = False
+    before = lsa.KERNEL.launches
+    got = match_gt_to_preds_batched(view, valid)
+    assert lsa.KERNEL.launches == before + 1
+    assert torch.equal(got.cpu(), lsa.solve_lsa_plain(view.cpu(), valid.cpu()))
+    assert torch.equal(lsa.solve_lsa(view.contiguous(), valid), got)
+
+
+def test_lsa_train_step_problems(dev):
+    """K5 on the problems one full-width image_r50_2x train step hands it
+    (recorded at the solver's entry), equal to the plain solver, twice."""
+    from polyphonicformer_torch.tools import kernel_probe
+
+    for costs, valid in kernel_probe._train_step_lsa_problems(dev):
+        got = lsa.solve_lsa(costs, valid)
+        assert torch.equal(got.cpu(), lsa.solve_lsa_plain(costs.cpu(), valid.cpu()))
+        assert torch.equal(lsa.solve_lsa(costs, valid), got)
 
 
 @pytest.mark.parametrize("shape,offset", [
@@ -259,6 +296,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):  # more rows than columns
         lsa.solve_lsa(torch.zeros((1, 5, 4), device=dev),
                       torch.ones((1, 5), dtype=torch.bool, device=dev))
+    with pytest.raises(ValueError):  # more columns than the largest instance
+        lsa.solve_lsa(torch.zeros((1, 2, 1025), device=dev),
+                      torch.ones((1, 2), dtype=torch.bool, device=dev))
     with pytest.raises(ValueError):
         z = torch.zeros((1, 3, 4, 4), device=dev)
         mask_loss.mask_loss_stats(z, z, torch.zeros((1, 2), device=dev),

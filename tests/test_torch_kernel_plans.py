@@ -1,10 +1,11 @@
-"""What the port's K1, K2, K3 and K6 wrappers hand their CUDA kernels,
+"""What the port's K1, K2, K3, K5 and K6 wrappers hand their CUDA kernels,
 checked on the CPU: K2's phase weights and K3's phase taps against the JAX
 package's, K3's launch plan, K1's launch plan,
 K1's threshold band, a numpy mirror of K1's exact three-way bf16 split
 of f32 features (pooling with it against JAX ``masked_pool``), K6's launch
-plan and vector path, and numpy mirrors of K6's log1p polynomial and its
-warp reduction.  No card, no compile."""
+plan and vector path, numpy mirrors of K6's log1p polynomial and its
+warp reduction, K5's launch plan and a numpy mirror of its warp-wide
+argmin.  No card, no compile."""
 import re
 from pathlib import Path
 
@@ -17,7 +18,7 @@ import torch
 from polyphonicformer_tpu.ops.pallas.mask_pool import masked_pool as jax_masked_pool
 from polyphonicformer_tpu.ops.pallas.phase_fusion import _phase_taps
 from polyphonicformer_tpu.ops.resize import _phase_weights
-from polyphonicformer_torch.ops.cuda import _lib, mask_loss, mask_pool, phase_fusion, upsample2
+from polyphonicformer_torch.ops.cuda import _lib, lsa, mask_loss, mask_pool, phase_fusion, upsample2
 
 H100_SMS = 132
 
@@ -302,8 +303,6 @@ def test_lsa_plain_counts_dijkstra_steps():
     """The plain solver counts each problem's Dijkstra steps (K5's serial
     chain): one a valid row where every row's best column is free, more
     where rows compete for a column; invalid rows take none."""
-    from polyphonicformer_torch.ops.cuda import lsa
-
     diag = torch.full((1, 4, 6), 5.0)
     diag[0, torch.arange(4), torch.arange(4)] = 0.0
     steps = []
@@ -322,6 +321,129 @@ def test_mask_loss_variants_edit_the_source():
 
     srcs = mask_loss_variants.sources()
     design = (_lib.CSRC / "mask_loss.cu").read_text()
+    assert srcs["design"] == design
+    assert all(s != design for name, s in srcs.items() if name != "design")
+    assert len(set(srcs.values())) == len(srcs)
+
+
+@pytest.mark.parametrize("g,p,cpl,smem", [
+    (1, 1, 1, 140),
+    (20, 20, 1, 1892),
+    (32, 32, 1, 4484),
+    (33, 33, 2, 4752),
+    (64, 100, 4, 26488),   # the train step's problems
+    (64, 130, 8, 34560),
+    (16, 1024, 32, 65732),
+])
+def test_lsa_launch_plan(g, p, cpl, smem):
+    """K5: the least template instance with 32 * cpl >= p columns, one warp
+    a problem, and shared memory for the costs at the odd row stride p | 1
+    with the 32 * cpl - p words the slots past p read, u, col4row and the
+    valid bitmask, within a block's 227 KB."""
+    plan = lsa.launch_plan(g, p)
+    assert plan == lsa.Plan(cpl, 32, smem)
+    assert 32 * cpl >= p and (cpl == 1 or 16 * cpl < p)
+    assert smem == 4 * (g * (p | 1) + 32 * cpl - p + 2 * g + -(-g // 32)) <= 232448
+
+
+def test_lsa_plan_matches_the_source():
+    """The instances ``poly_lsa`` dispatches and its shared memory formula
+    are those of ``launch_plan``."""
+    src = (_lib.CSRC / "lsa.cu").read_text()
+    cases = re.findall(r"case (\d+): return launch<(\d+)>", src)
+    assert all(a == b for a, b in cases)
+    assert [int(a) for a, _ in cases] == list(lsa.CPL_INSTANCES)
+    assert "return 4 * (G * row_stride(P) + row_pad(P, CPL) + 2 * G + (G + 31) / 32);" in src
+    assert "return P | 1;" in src and "return 32 * CPL - P;" in src
+
+
+def _ordered(x: np.float32) -> int:
+    """The key's high word: the order-preserving bits of x + 0.0 (-0.0
+    folds onto +0.0 in round-to-nearest)."""
+    b = int(np.array([np.float32(x) + np.float32(0.0)], dtype=np.float32).view(np.uint32)[0])
+    return (~b & 0xFFFFFFFF) if b & 0x80000000 else b | 0x80000000
+
+
+def _warp_argmin(vals: np.ndarray, remaining: np.ndarray, rows: np.ndarray) -> dict:
+    """csrc/lsa.cu's argmin of one Dijkstra step over (P,) f32 values:
+    column j in lane j % 32, slot j // 32; each lane takes the least
+    ordered value of its remaining slots (all ones for none) and the low
+    word of the first slot that holds it (column << 11 | its row + 1).
+    The kernel reduces with two ``__reduce_min_sync`` (the value, then the
+    low word among the lanes that hold it); five xor rounds over the packed
+    64-bit key (value << 32 | low word) give the same.  Returns the
+    (column, row) each lane ends with, for both."""
+    p = vals.shape[0]
+    cpl = lsa.launch_plan(1, p).cpl
+    highs, lows = [], []
+    for lane in range(32):
+        ords = [_ordered(vals[j]) if j < p and remaining[j] else 0xFFFFFFFF
+                for j in range(lane, 32 * cpl, 32)]
+        highs.append(min(ords))
+        j = ords.index(highs[-1]) * 32 + lane
+        lows.append(j << 11 | (int(rows[j]) + 1 if j < p else 0))
+    mm = min(highs)
+    lw = min(lo if hi == mm else 0xFFFFFFFF for hi, lo in zip(highs, lows))
+    keys = [hi << 32 | lo for hi, lo in zip(highs, lows)]
+    for off in (16, 8, 4, 2, 1):
+        keys = [min(k, keys[lane ^ off]) for lane, k in enumerate(keys)]
+    return {"redux": [(lw >> 11, (lw & 0x7FF) - 1)] * 32,
+            "butterfly": [((k & 0xFFFFFFFF) >> 11, (k & 0x7FF) - 1) for k in keys]}
+
+
+def _argmin_case(case: str, p: int, rng) -> tuple:
+    if case == "exact_ties":
+        vals = rng.randint(0, 3, p).astype(np.float32)
+        rem = rng.rand(p) < 0.7
+    elif case == "signed_zero":  # +0.0 before -0.0: raw bits would pick the -0.0
+        vals = rng.choice(np.float32([0.0, -0.0, 1.0, 2.5]), p).astype(np.float32)
+        vals[p // 3] = 0.0
+        vals[p // 3 + 1:] = np.where(vals[p // 3 + 1:] == 0, np.float32(-0.0), vals[p // 3 + 1:])
+        vals[: p // 3] = np.abs(vals[: p // 3]) + 1
+        vals[-1] = -0.0
+        rem = rng.rand(p) < 0.8
+        rem[[p // 3, -1]] = True
+    elif case == "one_remaining":
+        vals = (rng.randn(p) * 3).astype(np.float32)
+        rem = np.zeros(p, dtype=bool)
+        rem[rng.randint(p)] = True
+    else:  # every column masked but the last
+        vals = (rng.randn(p) * 3).astype(np.float32)
+        vals[-1] = 1e20
+        rem = np.zeros(p, dtype=bool)
+        rem[-1] = True
+    rem[rng.randint(p)] |= not rem.any()
+    return vals, rem
+
+
+@pytest.mark.parametrize("p", [20, 100, 1024])
+@pytest.mark.parametrize("case", ["exact_ties", "signed_zero", "one_remaining", "last_only"])
+def test_lsa_warp_argmin_picks_the_first_minimum(case, p):
+    """K5's warp-wide argmin (two ``__reduce_min_sync``) and the packed-key
+    xor butterfly leave in every lane the column ``torch.argmin`` picks on
+    the plain solver's masked values (the first index of the minimum, -0.0
+    equal to +0.0), with that column's row: exact ties, signed zeros, one
+    remaining column, every column masked but the last."""
+    rng = np.random.RandomState(p)
+    for _ in range(20):
+        vals, rem = _argmin_case(case, p, rng)
+        rows = rng.randint(-1, min(p, 1024), p)  # the row of each column, -1 free
+        want = int(torch.argmin(torch.where(torch.from_numpy(rem), torch.from_numpy(vals),
+                                            1e30)))
+        got = _warp_argmin(vals, rem, rows)
+        assert got["redux"] == got["butterfly"] == [(want, rows[want])] * 32
+        if case == "signed_zero":
+            assert want == p // 3 and not np.signbit(vals[want])
+
+
+def test_lsa_variants_edit_the_source():
+    """``tools/lsa_variants.py``: every edit finds its text once in
+    csrc/lsa.cu, and every variant but the design differs from it and
+    from the others."""
+    from polyphonicformer_torch.tools import lsa_variants
+
+    srcs = lsa_variants.sources()
+    design = (_lib.CSRC / "lsa.cu").read_text()
     assert srcs["design"] == design
     assert all(s != design for name, s in srcs.items() if name != "design")
     assert len(set(srcs.values())) == len(srcs)

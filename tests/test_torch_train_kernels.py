@@ -39,11 +39,14 @@ def test_upsample_bwd_plain_matches_jax_vjp(f):
 
 
 def _lsa_problems(seed, n, g, p):
-    """Costs with exact ties and valid rows that are not all at the front."""
+    """Costs with exact ties, signed zeros and valid rows that are not all
+    at the front."""
     rng = np.random.RandomState(seed)
     costs = (rng.randn(n, g, p) * 3).astype(np.float32)
     costs[:, :, ::7] = np.round(costs[:, :, ::7])  # repeated values: ties
     costs[0, :, :] = np.round(costs[0])  # a problem of small integers
+    costs[5, :, ::2] = -0.0  # -0.0 tied with +0.0
+    costs[5, :, 1::4] = 0.0
     valid = rng.rand(n, g) > 0.4
     valid[1] = False
     valid[2] = True
@@ -66,6 +69,22 @@ def test_lsa_plain_matches_pallas_and_lax():
     np.testing.assert_array_equal(got, want_pallas)
     np.testing.assert_array_equal(got, want_lax)
     assert (got[~valid] == -1).all() and (got[2] >= 0).all()
+
+
+def test_lsa_plain_matches_pallas_and_lax_transposed():
+    """K5 on the layout the assignment hands it: a transposed view of
+    (N, P, M) costs, the same assignments as the Pallas kernel and the lax
+    solver on the contiguous (N, M, P) costs."""
+    costs, valid = _lsa_problems(1, 6, 12, 20)
+    view = torch.from_numpy(np.ascontiguousarray(costs.transpose(0, 2, 1))).transpose(1, 2)
+    assert view.stride(1) == 1
+    np.testing.assert_array_equal(view.numpy(), costs)
+    got = match_gt_to_preds_batched(view, torch.from_numpy(valid)).numpy()
+    want_pallas = np.asarray(solve_lsa_pallas(jnp.asarray(costs), jnp.asarray(valid),
+                                              interpret=True))
+    want_lax = np.asarray(jax_match(jnp.asarray(costs), jnp.asarray(valid)))
+    np.testing.assert_array_equal(got, want_pallas)
+    np.testing.assert_array_equal(got, want_lax)
 
 
 def test_lsa_plain_is_optimal():
