@@ -23,7 +23,14 @@ route; (6)
 the Swin-L video serving path (``video_swinl``, seeded random weights, bf16)
 on an 8-frame 1024x2048 clip through ``make_clip_step``, then 3 steps of
 ``make_batched_video_step`` over 2 clips, then a debug-size ``swin_tiny``
-forward on the card against the same forward on the CPU.  Phases 4, 5 and 6
+forward on the card against the same forward on the CPU; (7) the 2-frame
+video train step (``video_r50_1x``, seeded random weights) at 1024x2048,
+batch 1, f32, through ``make_train_step(video=True)`` for 3 steps, its GT
+track boxes from the exact support marginals against those of the
+materialised x4 upsample, a debug-size video step on the card against the
+same step on the CPU in f64, then one warm ``video_swinl`` bf16 video step
+at 1024x2048 and the full-width time of K7/K8's backward (the plain
+versions' VJP).  Phases 4, 5, 6 and 7
 each count the kernel launches of their own run.  Any failed phase raises,
 so the exit code is not 0.  The last lines are the
 card, a JSON object of per-kernel results and the JSON result line
@@ -586,11 +593,14 @@ def main() -> int:
     print(f"[5 train] {json.dumps(train_info)}", flush=True)
     swin_launches, swin_info = run_swin(dev)
     print(f"[6 swin] {json.dumps(swin_info)}", flush=True)
+    video_launches, video_info = run_video(dev)
+    print(f"[7 video] {json.dumps(video_info)}", flush=True)
     for r in rows:
         kernel = r.pop("kernel", r["name"])  # rows at several shapes share a kernel
         by_path = {"serve": serve_launches.get(kernel, 0),
                    "train": train_launches.get(kernel, 0),
-                   "swin": swin_launches.get(kernel, 0)}
+                   "swin": swin_launches.get(kernel, 0),
+                   "video": video_launches.get(kernel, 0)}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         _check(f"launches {r['name']}", r["launches"] > 0, "never launched on a main path")
@@ -620,6 +630,15 @@ def swin_per_batched_step(b: int) -> dict:
 # mask losses of the rpn and of the stacked stages, forward and backward
 PER_STEP = {"mask_pool": 7, "upsample2": 4, "upsample2_bwd": 4, "lsa": 1, "mask_loss": 2,
             "mask_loss_bwd": 2}
+# a video train step launches PER_STEP too: the key frame's launches are an
+# image step's; the ref frame runs only the backbone and FPN, the GT boxes
+# are matmuls of the marginals and the track head RoIAlign, convolutions and
+# linears.  video_swinl adds K8 in the 4 blocks of stages 0-1 and K7 in the
+# 20 of stages 2-3, each launched by the key frame's forward, the ref
+# frame's no-grad forward and the key backbone's recomputation under
+# torch.utils.checkpoint in the backward; their backward is the plain
+# versions' VJP, no kernel
+SWIN_VIDEO_PER_STEP = {**PER_STEP, "window_attention": 3 * 4, "window_attn_math": 3 * 20}
 
 
 def _kernels():
@@ -1048,9 +1067,7 @@ def run_train(dev):
     launches = _count_launches(kernels, PER_STEP, steps, "train")
     peak = torch.cuda.max_memory_allocated()
     for i, m in enumerate(all_metrics):
-        bad = [k for k, v in m.items() if v != v or abs(v) == float("inf")]
-        _check(f"train step {i} losses", not bad, f"non-finite {bad}")
-        _check(f"train step {i} guard", m["skipped_nonfinite"] == 0.0, "step skipped")
+        _finite_metrics(f"train step {i}", m)
     _check("frozen conv1", torch.equal(state.model.backbone.conv1.weight, frozen),
            "a frozen parameter moved")
     _check("trainable layer2", not torch.equal(state.model.backbone.layer2[0].conv1.weight,
@@ -1090,6 +1107,277 @@ def run_train(dev):
         "launches": launches, "small_reference": check_train_reference(dev),
         "swin_small_reference": check_swin_train_reference(dev),
     }
+
+
+def _finite_metrics(tag: str, metrics: dict) -> None:
+    bad = [k for k, v in metrics.items() if v != v or abs(v) == float("inf")]
+    _check(f"{tag} losses", not bad, f"non-finite {bad}")
+    _check(f"{tag} guard", metrics["skipped_nonfinite"] == 0.0, "step skipped")
+
+
+VIDEO_RTOL = 1e-4  # the small video step on the card against f64: losses, grad_norm
+VIDEO_HW = (1024, 2048)  # phase 7's image size
+
+
+def check_video_train_reference(dev) -> dict:
+    """One debug_tiny_video step (2 frames, 64x128) on the same weights and
+    batch three ways: on the card in f32 (kernels), on the CPU in f32 and
+    on the CPU in f64, the reference (parameters, images and activations in
+    f64 except where the model casts to f32).  Checks: the card step
+    launches exactly PER_STEP; assignments equal; every loss and the
+    grad_norm within VIDEO_RTOL of the f64 step.  The f32 CPU step's
+    distance from f64 is reported beside it."""
+    import torch
+
+    from polyphonicformer_torch.configs import preset
+    from polyphonicformer_torch.data.synthetic import synthetic_batch
+    from polyphonicformer_torch.models import build_model
+    from polyphonicformer_torch.train import losses
+    from polyphonicformer_torch.train.step import create_train_state, make_train_step
+
+    cfg = preset("debug_tiny_video")
+    cpu = build_model(cfg.model, "cpu", generator=torch.Generator().manual_seed(0))
+    kernels = _kernels()
+
+    def step(device, dtype=torch.float32):
+        model = build_model(cfg.model, device, state_dict=cpu.state_dict())
+        state, opt = create_train_state(model, cfg, None, device=device)
+        state.model.to(dtype)
+        for st in opt.adamw.state.values():
+            st["exp_avg"], st["exp_avg_sq"] = st["exp_avg"].to(dtype), st["exp_avg_sq"].to(dtype)
+        batch = synthetic_batch(cfg.model, 1, (64, 128), two_frame=True, seed=0,
+                                max_instances=6, device=device)
+        batch = batch._replace(image=batch.image.to(dtype), ref_image=batch.ref_image.to(dtype))
+        with torch.no_grad():
+            asg = losses.assign(cfg.model, state.model(batch.image), batch.gt)
+        for k in kernels.values():
+            k.launches = 0
+        _, metrics = make_train_step(state.model, cfg, opt, video=True)(state, batch)
+        launches = {name: k.launches for name, k in kernels.items()}
+        return [a.gt2pred.cpu() for a in asg.assigns], {k: float(v) for k, v in metrics.items()}, \
+            launches
+
+    runs = {"f64": step("cpu", torch.float64), "cpu_f32": step("cpu"), "card": step(dev)}
+    _check("video reference launches",
+           all(runs["card"][2][k] == PER_STEP.get(k, 0) for k in kernels),
+           f"{runs['card'][2]}")
+    ref_asg, ref_metrics, _ = runs["f64"]
+    _check("video reference assignments", all(
+        torch.equal(a, b) for run in runs.values() for a, b in zip(ref_asg, run[0])),
+        "an f32 step's assignments differ from the f64 step's")
+    err = {key: {k: abs(run[1][k] - v) / max(abs(v), 1e-6) for k, v in ref_metrics.items()}
+           for key, run in runs.items() if key != "f64"}
+    for k, v in err["card"].items():
+        _check(f"video reference {k}", v <= VIDEO_RTOL,
+               f"{runs['card'][1][k]} on the card, {ref_metrics[k]} in f64")
+    return {"tolerance": VIDEO_RTOL,
+            "max_metric_rel_err_to_f64": {key: max(e.values()) for key, e in err.items()},
+            "worst_metric": {key: max(e, key=e.get) for key, e in err.items()},
+            "grad_norm": {key: run[1]["grad_norm"] for key, run in runs.items()},
+            "loss_track": {key: run[1]["loss_track"] for key, run in runs.items()},
+            "loss_track_aux": {key: run[1]["loss_track_aux"] for key, run in runs.items()}}
+
+
+def window_attn_backward_ms(dev) -> dict:
+    """K7/K8's backward (the plain versions' VJP, recomputed from the saved
+    qkv, bias and mask) at each Swin-L stage shape of a 1024x2048 image, bf16
+    with the shift mask: median device ms of one backward by CUDA events,
+    and its share of one step's backbone backward (blocks: 2 at stage 0,
+    2 at stage 1, 18 at stage 2, 2 at stage 3)."""
+    import torch
+
+    from polyphonicformer_torch.models.swin import _shift_attn_mask, window_partition
+    from polyphonicformer_torch.ops.cuda import window_attn
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    ws, l, out = 7, 49, {}
+    for stage, hp, wp, c, heads, blocks in ((0, 259, 518, 192, 6, 2), (1, 133, 259, 384, 12, 2),
+                                            (2, 70, 133, 768, 24, 18), (3, 35, 70, 1536, 48, 2)):
+        qkv = torch.randn((1, hp, wp, 3 * c), generator=gen, device=dev).to(torch.bfloat16)
+        bias = torch.randn((heads, l, l), generator=gen, device=dev) * 0.5
+        mask = torch.from_numpy(_shift_attn_mask(hp, wp, ws, 3)).to(dev)
+        q = (qkv if stage < 2 else window_partition(qkv, ws).contiguous()).requires_grad_(True)
+        b = bias.requires_grad_(True)
+        if stage < 2:
+            y = window_attn.window_attention(q, b, mask, heads, ws)
+        else:
+            y = window_attn.window_attn_math(q, b, mask, heads)
+        g = torch.randn(y.shape, generator=gen, device=dev).to(y.dtype)
+        ms = _time_ms(lambda: torch.autograd.grad(y, (q, b), g, retain_graph=True), reps=5)
+        out[f"stage{stage}"] = {"kernel": "window_attention" if stage < 2 else "window_attn_math",
+                                "ms": ms, "blocks": blocks}
+        del q, b, y, g
+    out["per_step_ms"] = sum(v["ms"] * v["blocks"] for v in out.values())
+    return out
+
+
+def run_video_swin(dev) -> tuple:
+    """Phase 7: one cold and one warm ``video_swinl`` bf16 video step at
+    1024x2048, batch 1; the warm step's launches, time and memory."""
+    import torch
+
+    from polyphonicformer_torch.configs import preset
+    from polyphonicformer_torch.data.synthetic import synthetic_batch
+    from polyphonicformer_torch.models import PolyphonicFormer
+    from polyphonicformer_torch.train.step import create_train_state, make_train_step
+
+    kernels = _kernels()
+    cfg = preset("video_swinl")
+    _check("video_swinl dtype", cfg.model.compute_dtype == "bfloat16", cfg.model.compute_dtype)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    with torch.device("meta"):
+        model = PolyphonicFormer(cfg.model)
+    state, opt = create_train_state(model, cfg, gen, steps_per_epoch=1000, device=dev)
+    step = make_train_step(state.model, cfg, opt, video=True)
+    batch = synthetic_batch(cfg.model, 1, VIDEO_HW, two_frame=True, seed=0, max_instances=24,
+                            device=dev)
+    step_s, all_metrics = [], []
+    for i in range(2):
+        torch.cuda.synchronize()
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+            for k in kernels.values():
+                k.launches = 0
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        all_metrics.append({k: float(v) for k, v in metrics.items()})
+    launches = _count_launches(kernels, SWIN_VIDEO_PER_STEP, 1, "swin video")
+    peak = torch.cuda.max_memory_allocated()
+    for i, m in enumerate(all_metrics):
+        _finite_metrics(f"swin video step {i}", m)
+    del state, opt, step, model
+    torch.cuda.empty_cache()
+    return launches, {
+        "preset": "video_swinl", "hw": list(VIDEO_HW), "batch": 1, "dtype": "bfloat16",
+        "max_instances": 24, "cold_step_s": step_s[0], "warm_step_ms": step_s[1] * 1e3,
+        "peak_mem_gib": peak / 2 ** 30, "total_loss": [m["total_loss"] for m in all_metrics],
+        "loss_track": [m["loss_track"] for m in all_metrics],
+        "launches_per_step": SWIN_VIDEO_PER_STEP,
+        "window_attn_backward": window_attn_backward_ms(dev)}
+
+
+def run_video(dev):
+    """Phase 7: the 2-frame video train step at full width, 1024x2048, B=1."""
+    import torch
+
+    from polyphonicformer_torch.configs import preset
+    from polyphonicformer_torch.data.structures import GTSample
+    from polyphonicformer_torch.data.synthetic import synthetic_batch
+    from polyphonicformer_torch.models import PolyphonicFormer
+    from polyphonicformer_torch.ops.roi_align import masks_to_boxes_mad
+    from polyphonicformer_torch.train import losses
+    from polyphonicformer_torch.train.step import create_train_state, make_train_step
+    from polyphonicformer_torch.train.video_losses import (gt_track_boxes, gt_track_masks,
+                                                           track_losses)
+
+    kernels = _kernels()
+    cfg = preset("video_r50_1x")
+    (h, w), steps = VIDEO_HW, 3
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    with torch.device("meta"):
+        model = PolyphonicFormer(cfg.model)
+    state, opt = create_train_state(model, cfg, gen, steps_per_epoch=1000, device=dev)
+    m = state.model
+    step = make_train_step(m, cfg, opt, video=True)
+    batch = synthetic_batch(cfg.model, 1, (h, w), two_frame=True, seed=0, max_instances=24,
+                            device=dev)
+    frozen = m.backbone.conv1.weight.detach().clone()
+    embed = m.track_head.fc_embed.weight.detach().clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    for k in kernels.values():
+        k.launches = 0
+    step_s, all_metrics = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        all_metrics.append({k: float(v) for k, v in metrics.items()})
+    launches = _count_launches(kernels, PER_STEP, steps, "video")
+    peak = torch.cuda.max_memory_allocated()
+    for i, mt in enumerate(all_metrics):
+        _finite_metrics(f"video step {i}", mt)
+    _check("video frozen conv1", torch.equal(m.backbone.conv1.weight, frozen),
+           "a frozen parameter moved")
+    _check("video fc_embed", not torch.equal(m.track_head.fc_embed.weight, embed),
+           "the track head's fc_embed did not move")
+    _check("video step counter", int(state.step) == steps, f"{int(state.step)}")
+
+    # one more step in stages, each closed by a synchronize (not counted)
+    stages = {}
+
+    def mark(name, t0):
+        torch.cuda.synchronize()
+        stages[name] = (time.perf_counter() - t0) * 1e3
+        return time.perf_counter()
+
+    t = time.perf_counter()
+    opt.zero_grad()
+    key_feats = m.extract_feat(batch.image)
+    out = m.forward_heads(key_feats)
+    t = mark("forward", t)
+    asg = losses.assign(cfg.model, out, batch.gt)
+    t = mark("assignment", t)
+    total, _ = losses.losses_from(cfg.model, out, batch.gt, asg)
+    t = mark("losses", t)
+    with torch.no_grad():
+        ref_feats = m.extract_feat(batch.ref_image)
+    t = mark("ref_features", t)
+    track = track_losses(m, cfg.model, batch, key_feats, ref_feats)
+    t = mark("track_losses", t)
+    (total + (track["loss_track"] + track["loss_track_aux"])).backward()
+    t = mark("backward", t)
+    opt.clip_grads()
+    opt.step()
+    mark("optimizer", t)
+    del key_feats, out, asg, total, ref_feats, track
+    opt.zero_grad()
+
+    # the GT track boxes of both frames (2 x 64 slots) from the stride-4
+    # marginals, bit-equal to the boxes of the materialised x4 upsample
+    both = GTSample(*(torch.cat([a, r]) for a, r in zip(batch.gt, batch.ref_gt)))
+    boxes_ms = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    marginal = gt_track_boxes(both, (h, w))
+    torch.cuda.synchronize()
+    boxes_ms["marginal"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    full = gt_track_masks(both, (h, w))  # (2, 64, 1024, 2048) f32, 1 GiB
+    materialised = masks_to_boxes_mad(full.flatten(0, 1)).reshape(marginal.shape)
+    torch.cuda.synchronize()
+    boxes_ms["materialised"] = (time.perf_counter() - t0) * 1e3
+    del full
+    n_valid = int(both.thing_valid.sum())
+    _check("video gt boxes", torch.equal(marginal, materialised),
+           f"{int((marginal != materialised).any(-1).sum())} boxes differ")
+    _check("video gt boxes", n_valid >= 24 and bool((marginal[both.thing_valid][:, 2:] > 0).all()),
+           f"{n_valid} valid slots")
+    del state, opt, step, m, model, batch, both
+    torch.cuda.empty_cache()
+
+    info = {
+        "preset": "video_r50_1x", "hw": [h, w], "batch": 1, "dtype": "float32",
+        "max_instances": 24, "cold_step_s": step_s[0],
+        "warm_steps_ms": [s * 1e3 for s in step_s[1:]],
+        "median_warm_step_ms": statistics.median(s * 1e3 for s in step_s[1:]),
+        "stages_ms": stages, "peak_mem_gib": peak / 2 ** 30,
+        "total_loss": [mt["total_loss"] for mt in all_metrics],
+        "loss_track": [mt["loss_track"] for mt in all_metrics],
+        "loss_track_aux": [mt["loss_track_aux"] for mt in all_metrics],
+        "grad_norm": [mt["grad_norm"] for mt in all_metrics],
+        "launches": launches, "gt_boxes": {"valid_slots": n_valid, "bit_equal": True,
+                                           "ms": boxes_ms},
+        "small_reference": check_video_train_reference(dev)}
+    swin_launches, info["swin"] = run_video_swin(dev)
+    return {name: launches[name] + swin_launches[name] for name in launches}, info
 
 
 if __name__ == "__main__":

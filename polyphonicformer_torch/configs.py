@@ -1,13 +1,14 @@
-"""Configuration of the port's serving and image-training paths.
+"""Configuration of the port's serving and training paths (image and
+2-frame video).
 
 The fields of ``polyphonicformer_tpu/configs/config.py`` that the port
 reads, under the same names and with the same defaults (the reference's
 ``configs/_base_/models/polyphonic_former.py``,
 ``configs/_base_/schedules/schedule_{1x,2x}.py`` and the leaf configs named
 at each preset), so the port and everything it runs on import nothing of
-the JAX package.  The video-training and loader fields wait for the slices
-that read them.  ``tests/test_torch_configs.py`` holds each preset
-field for field against the JAX package's.
+the JAX package.  The loader fields wait for the slice that reads them.
+``tests/test_torch_configs.py`` holds each preset field for field against
+the JAX package's.
 """
 from __future__ import annotations
 
@@ -62,9 +63,20 @@ class TrackHeadConfig:
     fc_out_channels: int = 1024
     embed_channels: int = 256
     gn_groups: int = 32
+    # the track losses (train/video_losses.py, losses/track.py)
+    loss_track_weight: float = 0.25
+    loss_aux_weight: float = 1.0
+    aux_neg_pos_ub: int = 3
+    aux_pos_margin: float = 0.0
+    aux_neg_margin: float = 0.1
+    aux_hard_mining: bool = True
+    softmax_temp: float = -1.0
     roi_sampling_ratio: int = 2
     featmap_strides: Tuple[int, ...] = (4, 8, 16, 32)
     finest_scale: int = 56
+    # RoIAlign form: "gather" (the flattened-pyramid gather) or "separable"
+    # (per-level interpolation matmuls; equal to float tolerance)
+    roi_impl: str = "gather"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -177,7 +177,8 @@ def video_frame_step(model: PolyphonicFormer, cfg, image: torch.Tensor,
     model, fpn, heads = _heads(model, image, compute_dtype)
     pano = _fuse(cfg, heads, 0, out_hw, fusion_dtype, emit_marginals=True, defer_maps=True)
     det = _detections(cfg, pano)
-    embeds = model.forward_track_embeds(fpn, det.roi_boxes[None], det.valid[None])[0].float()
+    embeds = model.forward_track_embeds(fpn, None, det.valid[None],
+                                        boxes=det.roi_boxes[None])[0].float()
     return _track_and_render(cfg, pano, det, embeds, tracker_state,
                              _frame_id(frame_id, embeds.device))
 
@@ -235,8 +236,8 @@ def batched_video_step(model: PolyphonicFormer, cfg, images: torch.Tensor,
     panos = [_fuse(cfg, heads, b, out_hw, fusion_dtype, emit_marginals=True, defer_maps=True)
              for b in range(batch)]
     dets = [_detections(cfg, pano) for pano in panos]
-    embeds = model.forward_track_embeds(fpn, torch.stack([d.roi_boxes for d in dets]),
-                                        torch.stack([d.valid for d in dets])).float()
+    embeds = model.forward_track_embeds(fpn, None, torch.stack([d.valid for d in dets]),
+                                        boxes=torch.stack([d.roi_boxes for d in dets])).float()
     dev = embeds.device
     outs, states = zip(*(
         _track_and_render(cfg, panos[b], dets[b], embeds[b], _clip_state(tracker_states, b),

@@ -87,11 +87,15 @@ class PolyphonicFormer(nn.Module):
     def forward(self, img: torch.Tensor) -> ModelOutput:
         return self.forward_heads(self.extract_feat(img))
 
-    def forward_track_embeds(self, fpn_feats, boxes: torch.Tensor,
-                             mask_valid: torch.Tensor) -> torch.Tensor:
-        """RoIAlign track embeddings (B, M, E) for MAD boxes (B, M, 4); the
-        JAX package's boxes-from-masks form serves training and waits."""
-        return self.track_head(fpn_feats, boxes, mask_valid)
+    def forward_track_embeds(self, fpn_feats, masks: torch.Tensor | None,
+                             mask_valid: torch.Tensor,
+                             boxes: torch.Tensor | None = None) -> torch.Tensor:
+        """RoIAlign track embeddings (B, M, E) of (padded) instances.
+
+        masks: (B, M, H, W) binary masks at input resolution, or None when
+        ``boxes`` is given; mask_valid: (B, M); boxes: optional (B, M, 4)
+        RoI boxes, which skip the mask-to-box reduction."""
+        return self.track_head(fpn_feats, masks, mask_valid, boxes)
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:

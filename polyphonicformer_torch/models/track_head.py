@@ -1,4 +1,5 @@
-"""Quasi-dense track-embedding head fed by RoIAlign boxes; mirrors
+"""Quasi-dense track-embedding head fed by RoIAlign boxes (given, or the
+MAD boxes of masks); mirrors
 ``polyphonicformer_tpu/models/track_head.py``.  The 7x7 RoI features are
 NCHW and flatten C-major, as the reference's ``track_head.fcs.0`` expects."""
 from __future__ import annotations
@@ -9,7 +10,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ..ops.roi_align import multilevel_roi_align
+from ..ops.roi_align import (masks_to_boxes_mad, multilevel_roi_align,
+                             multilevel_roi_align_separable)
 from .layers import ConvNormAct
 
 
@@ -39,15 +41,20 @@ class TrackHead(nn.Module):
             x = F.relu(fc(x))
         return self.fc_embed(x)
 
-    def forward(self, fpn_feats: Sequence[torch.Tensor], boxes: torch.Tensor,
-                mask_valid: torch.Tensor) -> torch.Tensor:
-        """fpn_feats: P2..P5 (B, C, H_l, W_l); boxes: (B, M, 4) x1, y1, x2,
-        y2 MAD boxes; mask_valid: (B, M).  Returns (B, M, E)."""
+    def forward(self, fpn_feats: Sequence[torch.Tensor], masks: torch.Tensor | None,
+                mask_valid: torch.Tensor, boxes: torch.Tensor | None = None) -> torch.Tensor:
+        """fpn_feats: P2..P5 (B, C, H_l, W_l); masks: (B, M, H, W) at input
+        resolution, None when ``boxes`` is given; mask_valid: (B, M);
+        boxes: (B, M, 4) x1, y1, x2, y2 MAD boxes, or None to compute them
+        from ``masks``.  Returns (B, M, E)."""
         cfg = self.cfg
+        roi_align = (multilevel_roi_align_separable if cfg.roi_impl == "separable"
+                     else multilevel_roi_align)
         rois = []
         for b in range(mask_valid.shape[0]):
-            bxs = torch.where(mask_valid[b][:, None], boxes[b], torch.zeros_like(boxes[b]))
-            rois.append(multilevel_roi_align(
+            bxs = masks_to_boxes_mad(masks[b]) if boxes is None else boxes[b]
+            bxs = torch.where(mask_valid[b][:, None], bxs, torch.zeros_like(bxs))
+            rois.append(roi_align(
                 [f[b].permute(1, 2, 0) for f in fpn_feats], bxs,
                 strides=cfg.featmap_strides, out_size=cfg.roi_feat_size,
                 sampling_ratio=cfg.roi_sampling_ratio, finest_scale=cfg.finest_scale))

@@ -1,6 +1,6 @@
 """Where the device time of the port's main paths goes, on one CUDA card.
 
-    python -m polyphonicformer_torch.tools.profile_paths
+    python -m polyphonicformer_torch.tools.profile_paths [unit ...]
 
 Units of work, each at full width with seeded random weights:
 
@@ -9,6 +9,9 @@ Units of work, each at full width with seeded random weights:
 * ``train_step_f32``: one warm 1024x2048 train step of ``image_r50_2x``
   (batch 1, ``make_train_step`` with its non-finite guard, f32, TF32 off);
 * ``train_step_bf16``: the same step with ``compute_dtype="bfloat16"``;
+* ``train_video``: one warm 1024x2048 2-frame train step of
+  ``video_r50_1x`` (batch 1, ``make_train_step(video=True)``, f32, TF32
+  off): the key frame's losses, the ref frame's features, the track losses;
 * ``serve_frame_swinl``: one warm frame of the Swin-L path
   (``video_swinl``, bf16 network and fusion);
 * ``serve_batched_swinl``: one warm ``batched_video_step`` over 2 clips of
@@ -22,6 +25,7 @@ idle share of the unprofiled wall time that leaves, the number of kernels,
 the device time by kernel class, the ten longest kernels, and the device
 time and launches of each of the port's own kernels.  One JSON
 line per unit on standard output, then the card's name and power limit.
+Units named on the command line run alone; without names, all run.
 """
 from __future__ import annotations
 
@@ -155,7 +159,9 @@ def serve_frame(dev, preset: str = "video_r50_1x", clips: int = 0):
     return run
 
 
-def train_step(dev, compute_dtype: str):
+def train_step(dev, compute_dtype: str, video: bool = False):
+    """A train step of ``image_r50_2x``, or with ``video`` a 2-frame step of
+    ``video_r50_1x``."""
     import torch
 
     from ..configs import preset
@@ -163,15 +169,16 @@ def train_step(dev, compute_dtype: str):
     from ..models import PolyphonicFormer
     from ..train.step import create_train_state, make_train_step
 
-    cfg = preset("image_r50_2x")
+    cfg = preset("video_r50_1x" if video else "image_r50_2x")
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
                                                              compute_dtype=compute_dtype))
     with torch.device("meta"):
         model = PolyphonicFormer(cfg.model)
     gen = torch.Generator(device=dev).manual_seed(0)
     state, opt = create_train_state(model, cfg, gen, steps_per_epoch=1000, device=dev)
-    step = make_train_step(state.model, cfg, opt)
-    batch = synthetic_batch(cfg.model, 1, (1024, 2048), seed=0, max_instances=24, device=dev)
+    step = make_train_step(state.model, cfg, opt, video=video)
+    batch = synthetic_batch(cfg.model, 1, (1024, 2048), two_frame=video, seed=0,
+                            max_instances=24, device=dev)
     holder = [state]
 
     def run():
@@ -192,9 +199,17 @@ def main() -> int:
     units = (("serve_frame", lambda: serve_frame(dev), 12),
              ("train_step_f32", lambda: train_step(dev, "float32"), 8),
              ("train_step_bf16", lambda: train_step(dev, "bfloat16"), 8),
+             ("train_video", lambda: train_step(dev, "float32", video=True), 8),
              ("serve_frame_swinl", lambda: serve_frame(dev, "video_swinl"), 12),
              ("serve_batched_swinl", lambda: serve_frame(dev, "video_swinl", clips=2), 8))
+    chosen = sys.argv[1:] or [name for name, _, _ in units]
+    unknown = set(chosen) - {name for name, _, _ in units}
+    if unknown:
+        print(f"profile_paths: unknown units {sorted(unknown)}", file=sys.stderr)
+        return 2
     for name, build, warm in units:
+        if name not in chosen:
+            continue
         print(json.dumps(measure(name, build(), warm)), flush=True)
         torch.cuda.empty_cache()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -1,6 +1,9 @@
-"""The image-model train step; mirrors ``polyphonicformer_tpu/train/step.py``.
+"""The train step of the image model and of the 2-frame video model;
+mirrors ``polyphonicformer_tpu/train/step.py``.
 
-One step: forward, every Hungarian matching, targets, losses, backward,
+One step: forward, every Hungarian matching, targets, losses (with
+``video=True`` the ref frame's features and the track losses too,
+:mod:`.video_losses`), backward,
 global-norm clip and AdamW (:mod:`.optim`), with a non-finite guard that
 keeps the previous parameters and optimizer state (Adam moments and step
 counts) when the loss or the gradient norm is not finite.  Nothing in the
@@ -25,6 +28,7 @@ from ..data.structures import TrainBatch
 from ..models.polyphonic import PolyphonicFormer, init_weights
 from .losses import compute_losses
 from .optim import Optimizer
+from .video_losses import video_forward_losses
 
 
 @dataclasses.dataclass
@@ -58,36 +62,52 @@ def normalize_uint8_image(img: torch.Tensor, mean, std) -> torch.Tensor:
 
 
 def make_train_step(model: PolyphonicFormer, cfg, optimizer: Optimizer,
-                    nan_guard: bool = True):
+                    nan_guard: bool = True, video: bool = False):
     """step(state, batch) -> (state, metrics): the loss dict plus
     ``total_loss``, ``grad_norm`` and (with ``nan_guard``)
     ``skipped_nonfinite``, all device tensors.  ``cfg``: an
     ``ExperimentConfig``.
 
+    With ``video`` the step trains on 2-frame batches (``ref_image`` and
+    ``ref_gt`` set, ``cfg.model.with_track``): the key frame's losses plus
+    the track losses (:func:`.video_losses.video_forward_losses`).
+
     With ``compute_dtype='bfloat16'`` the forward and backward run on a
-    bf16 copy of the model (parameters, frozen statistics and image cast
+    bf16 copy of the model (parameters, frozen statistics and images cast
     to bf16, as the JAX step casts them), refreshed from the f32 master
     weights each step; its gradients, cast to f32, are the master weights'
     gradients (the cast's own gradient is the cast back)."""
+    if video and not cfg.model.with_track:
+        raise ValueError("video training needs a model with a track head (with_track)")
     half = None
     if cfg.model.compute_dtype == "bfloat16":
         half = copy.deepcopy(model).to(torch.bfloat16)
         pairs = [(h, p) for h, p in zip(half.parameters(), model.parameters())
                  if p.requires_grad]
 
-    def step(state: TrainState, batch: TrainBatch):
-        image = batch.image
+    def prep(image):
+        """A batch image normalised (uint8) and cast (bf16); None stays None."""
+        if image is None:
+            return None
         if image.dtype == torch.uint8:
             image = normalize_uint8_image(image, cfg.data.mean, cfg.data.std)
+        return image if half is None else image.to(torch.bfloat16)
+
+    def step(state: TrainState, batch: TrainBatch):
+        if video and batch.ref_image is None:
+            raise ValueError("a video train step needs a 2-frame batch (ref_image, ref_gt)")
+        batch = batch._replace(image=prep(batch.image), ref_image=prep(batch.ref_image))
         optimizer.zero_grad()
-        if half is None:
-            out = model(image)
-        else:
+        net = model
+        if half is not None:
             with torch.no_grad():
                 torch._foreach_copy_([h for h, _ in pairs], [p for _, p in pairs])
             half.zero_grad(set_to_none=True)
-            out = half(image.to(torch.bfloat16))
-        total, losses = compute_losses(cfg.model, out, batch.gt)
+            net = half
+        if video:
+            total, losses = video_forward_losses(net, cfg.model, batch)
+        else:
+            total, losses = compute_losses(cfg.model, net(batch.image), batch.gt)
         total.backward()
         if half is not None:
             for h, p in pairs:

@@ -360,6 +360,61 @@ def test_train_step_never_syncs(dev):
     assert bool(torch.isfinite(metrics["total_loss"]))
 
 
+def test_video_train_step_never_syncs(dev):
+    """After a warm-up step, one debug_tiny_video 2-frame train step on the
+    card (the key frame's K1, K2, K2b, K5, K6, K6b, the ref frame's
+    features, the marginal GT boxes, the track head and losses, AdamW and
+    the guard) reads nothing back to the host, and launches each kernel as
+    often as an image step does."""
+    from polyphonicformer_torch.configs import preset
+    from polyphonicformer_torch.data.synthetic import synthetic_batch
+    from polyphonicformer_torch.models import PolyphonicFormer
+    from polyphonicformer_torch.train.step import create_train_state, make_train_step
+
+    cfg = preset("debug_tiny_video")
+    with torch.device("meta"):
+        model = PolyphonicFormer(cfg.model)
+    state, opt = create_train_state(model, cfg, torch.Generator(device=dev).manual_seed(0),
+                                    device=dev)
+    step = make_train_step(state.model, cfg, opt, video=True)
+    batch = synthetic_batch(cfg.model, 1, (64, 128), two_frame=True, seed=0, device=dev)
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    kernels = (mask_pool.KERNEL, upsample2.KERNEL, upsample2.KERNEL_BWD, lsa.KERNEL,
+               mask_loss.KERNEL, mask_loss.KERNEL_BWD)
+    before = [k.launches for k in kernels]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, metrics = step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert [k.launches - b for k, b in zip(kernels, before)] == [7, 4, 4, 1, 2, 2]
+    assert float(metrics["skipped_nonfinite"]) == 0.0
+    assert bool(torch.isfinite(metrics["total_loss"]))
+    assert float(metrics["loss_track"]) > 0 and float(metrics["loss_track_aux"]) > 0
+
+
+@pytest.mark.parametrize("hw", [(256, 512), (128, 256)])
+def test_marginal_gt_boxes_equal_materialised_on_card(dev, hw):
+    """The GT track boxes from the stride-4 support marginals equal, bit for
+    bit, the MAD boxes of the materialised binarised x4 upsample (K2) over
+    the same masks; the marginal counts equal the CPU's."""
+    from polyphonicformer_torch.configs import model_preset
+    from polyphonicformer_torch.data.synthetic import synthetic_batch
+    from polyphonicformer_torch.ops.roi_align import masks_to_boxes_mad, upsampled_support_marginals
+    from polyphonicformer_torch.train.video_losses import gt_track_boxes, gt_track_masks
+
+    cfg = model_preset("video_r50_1x")
+    gt = synthetic_batch(cfg, 2, hw, seed=3, max_instances=24, device=dev).gt
+    got = gt_track_boxes(gt, hw)
+    full = gt_track_masks(gt, hw)
+    assert torch.equal(got, masks_to_boxes_mad(full.flatten(0, 1)).reshape(got.shape))
+    assert int(gt.thing_valid.sum()) >= 24
+    cpu = upsampled_support_marginals(gt.thing_masks.flatten(0, 1).cpu(), hw)
+    for a, b in zip(upsampled_support_marginals(gt.thing_masks.flatten(0, 1), hw), cpu):
+        assert torch.equal(a.cpu(), b)
+
+
 def _attn_close(got, want):
     """f32: sums in another order (1e-5).  bf16: within one bf16 spacing
     (ulp) of the output everywhere, as one flipped output rounding; K7's

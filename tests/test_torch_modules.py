@@ -112,7 +112,7 @@ def test_track_head(setup):
     with torch.no_grad():
         emb_p = port.forward_track_embeds(
             [torch.from_numpy(np.array(f)).permute(0, 3, 1, 2) for f in fpn_j],
-            torch.from_numpy(boxes), torch.from_numpy(valid))
+            None, torch.from_numpy(valid), boxes=torch.from_numpy(boxes))
     assert emb_p.shape == (1, 6, cfg.track_head.embed_channels)
     _close("embeds", emb_j, emb_p)
 
