@@ -30,7 +30,16 @@ track boxes from the exact support marginals against those of the
 materialised x4 upsample, a debug-size video step on the card against the
 same step on the CPU in f64, then one warm ``video_swinl`` bf16 video step
 at 1024x2048 and the full-width time of K7/K8's backward (the plain
-versions' VJP).  Phases 4, 5, 6 and 7
+versions' VJP); (8) the evaluation CLIs from PNGs on disk: a 1024x2048
+Cityscapes-DVPS-layout val split of 2 sequences x 6 frames written with the
+port's PNG encoder (Paeth rows) and seeded ``video_r50_1x`` weights pickled
+as the JAX CLIs' checkpoint, then ``tools/eval_video.py`` in bf16 in clip
+mode (6 frames a clip, 4 decode workers, DVPQ and STQ) and again in
+streaming mode under ``torch.profiler`` (device busy time), their dumps
+bit-equal and the GT dumps equal to the decoded PNGs, ``tools/eval_image.py``
+over the split, and ``tools/demo.py`` on a 1000x2000 image (the general
+fusion branch), with the PNG decode, loader, dump-write and aggregation
+times.  Phases 4, 5, 6, 7 and 8
 each count the kernel launches of their own run.  Any failed phase raises,
 so the exit code is not 0.  The last lines are the
 card, a JSON object of per-kernel results and the JSON result line
@@ -595,12 +604,15 @@ def main() -> int:
     print(f"[6 swin] {json.dumps(swin_info)}", flush=True)
     video_launches, video_info = run_video(dev)
     print(f"[7 video] {json.dumps(video_info)}", flush=True)
+    eval_launches, eval_info = run_eval(dev)
+    print(f"[8 eval] {json.dumps(eval_info)}", flush=True)
     for r in rows:
         kernel = r.pop("kernel", r["name"])  # rows at several shapes share a kernel
         by_path = {"serve": serve_launches.get(kernel, 0),
                    "train": train_launches.get(kernel, 0),
                    "swin": swin_launches.get(kernel, 0),
-                   "video": video_launches.get(kernel, 0)}
+                   "video": video_launches.get(kernel, 0),
+                   "eval": eval_launches.get(kernel, 0)}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         _check(f"launches {r['name']}", r["launches"] > 0, "never launched on a main path")
@@ -1378,6 +1390,251 @@ def run_video(dev):
         "small_reference": check_video_train_reference(dev)}
     swin_launches, info["swin"] = run_video_swin(dev)
     return {name: launches[name] + swin_launches[name] for name in launches}, info
+
+
+EVAL_HW = (1024, 2048)  # phase 8's frames
+EVAL_SEQS, EVAL_FRAMES = 2, 6  # sequences and frames a sequence of its split
+EVAL_WORKERS = 4
+LOADER_LOOPS = 4  # passes over the split when the loader alone is timed
+DEMO_HW = (1000, 2000)  # not a multiple of 32: the general fusion branch
+# the demo's image step (f32, general fusion): K1 in the rpn head and twice
+# a stage, the three x2 upsamples, K4; the dense depth's non-integer resize
+# is a matmul and the general branch launches no K3
+DEMO_PER_IMAGE = {"mask_pool": 7, "upsample2": 3, "map_render": 1}
+
+
+def _eval_dir() -> str:
+    import os
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "work_dirs",
+                        "chip_smoke_eval")
+
+
+def _decode_ms(ds, dc) -> dict:
+    """Mean ms a frame of each PNG decode and of the whole frame preparation
+    (decode, panoptic remap, normalise, pad), serially in this process."""
+    from polyphonicformer_torch.data.pipeline import make_test_input
+    from polyphonicformer_torch.data.png import read_png
+
+    times = {"image": [], "panoptic": [], "depth": [], "frame": []}
+    for info in ds.images:
+        for key, path in (("image", info["img"]), ("panoptic", info["ann"]),
+                          ("depth", info["depth"])):
+            t0 = time.perf_counter()
+            read_png(path)
+            times[key].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        make_test_input(ds.load_frame(info, segments=False), dc)
+        times["frame"].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.mean(v) for k, v in times.items()}
+
+
+def _loader_fps(ds, dc, padded_hw, gt_dir, dev) -> dict:
+    """MPEvalLoader with EVAL_WORKERS workers (GT dumps included) over the
+    split LOADER_LOOPS times: the steady frames/s, without the first round of
+    workers (its frames and the time up to its last), and the seconds to the
+    first frame."""
+    import torch
+
+    from polyphonicformer_torch.data.mp_loader import MPEvalLoader
+
+    frames = ds.images * LOADER_LOOPS
+    arrivals = []
+    t_enter = time.perf_counter()
+    with MPEvalLoader(ds, frames, dc, padded_hw, num_workers=EVAL_WORKERS,
+                      gt_dir=gt_dir, device=dev) as loader:
+        for _ in loader:
+            arrivals.append(time.perf_counter())
+        torch.cuda.synchronize()  # the last copy has landed
+        t_end = time.perf_counter()
+    w = EVAL_WORKERS
+    return {"workers": w, "frames": len(frames), "first_frame_s": arrivals[0] - t_enter,
+            "frames_per_s": (len(frames) - w) / (t_end - arrivals[w - 1])}
+
+
+def _span_busy_ms(prof, span: str):
+    """(device busy ms, wall ms) inside the host span ``span`` of one trace:
+    the union of the card's kernels, copies and sets clipped to the span."""
+    from torch.autograd import DeviceType
+
+    from polyphonicformer_torch.tools.profile_paths import _device_events, busy_us
+
+    hosts = [e for e in prof.events() if e.name == span and e.device_type == DeviceType.CPU]
+    _check(f"profiler span {span}", len(hosts) == 1, f"{len(hosts)} spans")
+    s, e = hosts[0].time_range.start, hosts[0].time_range.end
+    inside = [(max(a, s), min(b, e)) for _, a, b in _device_events(prof) if b > s and a < e]
+    _check(f"device events in {span}", len(inside) > 0, "the trace has none")
+    return busy_us(inside) / 1e3, (e - s) / 1e3
+
+
+def _dumps_equal(a_dir: str, b_dir: str, tag: str) -> int:
+    import os
+
+    import numpy as np
+
+    from polyphonicformer_torch.evalutils.dvpq import list_frames
+
+    n = 0
+    for kind in ("pred", "gt"):
+        a, b = list_frames(a_dir, kind), list_frames(b_dir, kind)
+        _check(f"{tag} {kind} frames", [os.path.basename(p) for p in a]
+               == [os.path.basename(p) for p in b] and len(a) == EVAL_SEQS * EVAL_FRAMES,
+               f"{len(a)} vs {len(b)} dumps")
+        for pa, pb in zip(a, b):
+            fa, fb = np.load(pa), np.load(pb)
+            for key in ("panseg", "depth"):
+                bad = int((fa[key] != fb[key]).sum()) if fa[key].dtype == fb[key].dtype \
+                    else -1
+                _check(f"{tag} {kind} {os.path.basename(pa)} {key}", bad == 0,
+                       f"{bad} values differ (-1: dtypes differ)")
+            n += 1
+    return n
+
+
+def _gt_dumps_match_pngs(eval_dir: str, ds) -> None:
+    """Each GT dump equals its frame's decoded PNGs."""
+    import os
+
+    import numpy as np
+
+    for info in ds.images:
+        frame = ds.load_frame(info, segments=False)
+        f = np.load(os.path.join(eval_dir, "gt",
+                                 f"{info['seq_id']:06d}_{info['img_id']:06d}.npz"))
+        _check(f"gt dump {info['img_id']}", np.array_equal(f["panseg"], frame["pan"])
+               and np.array_equal(f["depth"], np.round(frame["depth"] * 256).astype(np.uint16)),
+               "differs from the decoded PNGs")
+
+
+def run_eval(dev):
+    """Phase 8: the evaluation CLIs at full width from PNGs on disk."""
+    import math
+    import os
+    import pickle
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from polyphonicformer_torch.configs import preset
+    from polyphonicformer_torch.data.cityscapes_dvps import CityscapesDVPSDataset
+    from polyphonicformer_torch.data.png import read_png, write_png
+    from polyphonicformer_torch.data.synthetic_split import write_dvps_split
+    from polyphonicformer_torch.evalutils.dvpq import list_frames
+    from polyphonicformer_torch.tools import demo, eval_image, eval_video
+    from polyphonicformer_torch.weights import to_jax_variables, to_numpy_state_dict
+
+    dc = preset("video_r50_1x").data
+    kernels = _kernels()
+    work = _eval_dir()
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        root = os.path.join(work, "data")
+        h, w = EVAL_HW
+        t0 = time.perf_counter()
+        write_dvps_split(root, "val", EVAL_SEQS, EVAL_FRAMES, h, w, seed=0, filter_type=4)
+        write_s = time.perf_counter() - t0
+        cfg, model, _ = _serving_model("video_r50_1x", dev)
+        ckpt = os.path.join(work, "video_r50_1x_seed0.pkl")
+        with open(ckpt, "wb") as f:
+            pickle.dump(to_jax_variables(to_numpy_state_dict(model), cfg), f)
+        del model
+        ds = CityscapesDVPSDataset(root, split="val", ref_sample_mode="img")
+        n = len(ds.images)
+        info = {"preset": "video_r50_1x", "hw": [h, w], "frames": n, "dtype": "bfloat16",
+                "png_filter": "Paeth", "split_write_s": write_s, "decode_ms": _decode_ms(ds, dc),
+                "loader": _loader_fps(ds, dc, (h, w), os.path.join(work, "loader_gt"), dev)}
+        common = ["--data-root", root, "--checkpoint", ckpt, "--preset", "video_r50_1x",
+                  "--bf16", "--workers", str(EVAL_WORKERS)]
+
+        clip_dir, stream_dir = os.path.join(work, "clip"), os.path.join(work, "stream")
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        out = eval_video.main(common + ["--eval-dir", clip_dir, "--clip-len", str(EVAL_FRAMES),
+                                        "--eval-stq", "--nproc", "8"])
+        cli_s = time.perf_counter() - t0
+        launches = _count_launches(kernels, PER_FRAME, n, "eval_video clip")
+        results = out["results"]
+        cells = [k for k in results if k not in ("average", "stq")]
+        _check("dvpq cells", len(cells) == 16 and all(
+            math.isfinite(v) for k in cells + ["average"] for v in results[k].values())
+            and all(math.isfinite(v) for v in results["stq"].values()), json.dumps(results))
+
+        from torch.profiler import ProfilerActivity, profile
+
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            stream = eval_video.main(common + ["--eval-dir", stream_dir, "--clip-len", "1",
+                                               "--skip-aggregate"])
+            torch.cuda.synchronize()
+        stream_s = time.perf_counter() - t0
+        stream_launches = _count_launches(kernels, PER_FRAME, n, "eval_video streaming")
+        launches = {k: launches[k] + stream_launches[k] for k in launches}
+        busy_ms, span_ms = _span_busy_ms(prof, "eval_video.inference")
+        compared = _dumps_equal(clip_dir, stream_dir, "clip vs streaming")
+        _gt_dumps_match_pngs(clip_dir, ds)
+        tracked = sum(int((np.load(p)["panseg"] % 10000 > 0).any())
+                      for p in list_frames(clip_dir, "pred"))
+
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        metrics = eval_image.main(["--data-root", root, "--checkpoint", ckpt, "--preset",
+                                   "video_r50_1x", "--bf16"])
+        image_s = time.perf_counter() - t0
+        image_launches = _count_launches(kernels, PER_FRAME, n, "eval_image")
+        _check("eval_image metrics", all(math.isfinite(v) for v in metrics.values()),
+               json.dumps(metrics))
+
+        img = read_png(ds.images[0]["img"])[:DEMO_HW[0], :DEMO_HW[1]]
+        demo_in = os.path.join(work, "demo_in.png")
+        write_png(demo_in, img)
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        written = demo.main([demo_in, "--checkpoint", ckpt, "--preset", "video_r50_1x",
+                             "--out-dir", os.path.join(work, "demo")])
+        demo_s = time.perf_counter() - t0
+        demo_launches = _count_launches(kernels, DEMO_PER_IMAGE, 1, "demo")
+        outs = [read_png(p) for p in written]
+        _check("demo outputs", len(outs) == 2 and all(
+            o.shape == DEMO_HW + (3,) and o.dtype == np.uint8 for o in outs),
+            f"{[o.shape for o in outs]}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    inf, sinf = out["inference"], stream["inference"]
+    info.update({
+        # wall and frames/s from the loader's start to the last dump written;
+        # steady: without the first round of workers
+        "eval_video_clip": {"clip_len": EVAL_FRAMES, "frames_per_s": inf["frames_per_s"],
+                            "steady_frames_per_s": inf["steady_frames_per_s"],
+                            "first_frame_s": inf["first_frame_s"],
+                            "inference_wall_s": inf["wall_s"],
+                            "dump_write_ms": inf["dump_write_ms"],
+                            "aggregate_s": out["aggregate_s"], "cli_wall_s": cli_s,
+                            "dvpq_average": results["average"], "stq": results["stq"],
+                            "frames_with_tracks": tracked},
+        # one profiled run: its device busy time (the span also holds the
+        # loader's shutdown, when the card runs nothing) over its own wall
+        "eval_video_streaming": {
+            "frames_per_s_profiled": sinf["frames_per_s"],
+            "steady_frames_per_s_profiled": sinf["steady_frames_per_s"],
+            "inference_wall_s_profiled": sinf["wall_s"], "cli_wall_s": stream_s,
+            "span_ms": span_ms, "device_busy_ms": busy_ms,
+            "device_busy_ms_a_frame": busy_ms / n,
+            "busy_share_of_wall": busy_ms / 1e3 / sinf["wall_s"]},
+        "dumps_bit_equal": compared,
+        "eval_image": {"cli_wall_s": image_s, "frames_per_s": n / image_s,
+                       "pq@inf": metrics["pq@inf"], "depth_abs_rel": metrics["depth_abs_rel"]},
+        "demo": {"hw": list(DEMO_HW), "wall_s": demo_s, "launches": demo_launches},
+        "launches": {k: launches[k] + image_launches[k] + demo_launches[k] for k in launches}})
+    return info["launches"], info
 
 
 if __name__ == "__main__":

@@ -13,7 +13,7 @@ the JAX package's.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Any, Sequence, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -217,7 +217,60 @@ def preset(name: str) -> ExperimentConfig:
     return PRESETS[name]()
 
 
+# the JAX package's name, so the CLIs read the same
+get_preset = preset
+
+
 def model_preset(name: str, **replacements) -> ModelConfig:
     """The model configuration of the JAX package's preset ``name``
     (``get_preset(name).model``), with ``replacements`` applied."""
     return dataclasses.replace(preset(name).model, **replacements)
+
+
+def _replace_path(obj: Any, path: Sequence[str], value: Any) -> Any:
+    if not path:
+        return value
+    field_name = path[0]
+    sub = getattr(obj, field_name)
+    new_sub = _replace_path(sub, path[1:], value)
+    return dataclasses.replace(obj, **{field_name: new_sub})
+
+
+def apply_overrides(cfg: Any, overrides: dict) -> Any:
+    """Apply flat dotted-path overrides, e.g. {'schedule.lr': 2e-4}; a copy
+    of the JAX package's ``configs/config.py::apply_overrides``.
+
+    Values are coerced to the existing field's type where sensible; this is
+    the equivalent of the reference's ``--cfg-options``
+    (tools/train.py:64-73).
+    """
+    for key, value in overrides.items():
+        path = key.split(".")
+        node = cfg
+        for p in path[:-1]:
+            node = getattr(node, p)
+        old = getattr(node, path[-1])
+        if isinstance(value, str) and old is not None and not isinstance(old, str):
+            if isinstance(old, bool):
+                value = value.lower() in ("1", "true", "yes")
+            elif isinstance(old, int):
+                value = int(value)
+            elif isinstance(old, float):
+                value = float(value)
+            elif isinstance(old, tuple):
+                elt = type(old[0]) if old else float
+                # accept both "a,b" and "(a,b)" / "[a,b]" spellings
+                value = tuple(elt(v) for v in
+                              value.strip("()[] ").split(","))
+        cfg = _replace_path(cfg, path, value)
+    return cfg
+
+
+def parse_overrides(pairs) -> dict:
+    """``["a.b=1", ...]`` (the CLIs' ``--set``) -> ``{"a.b": "1"}``; the JAX
+    package's ``tools/train.py::parse_overrides``."""
+    out = {}
+    for pair in pairs or []:
+        key, value = pair.split("=", 1)
+        out[key] = value
+    return out

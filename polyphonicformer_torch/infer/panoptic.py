@@ -1,10 +1,12 @@
 """Panoptic + depth fusion without data-dependent loops; mirrors
 ``polyphonicformer_tpu/infer/panoptic.py``.
 
-Two branches are ported: the bf16 serving branch, where the phase-space
-merge is the K3 kernel (``ops/cuda/phase_fusion.py``), and the f32
-reference-exact phase branch in plain tensor ops.  The general
-non-integer-factor branch is not ported and raises.  The maps are rendered
+Three branches, as in JAX: at an integer factor <= 8 the bf16 serving
+branch, where the phase-space merge is the K3 kernel
+(``ops/cuda/phase_fusion.py``), and the f32 reference-exact phase branch in
+plain tensor ops; at any other factor (an image whose size is not a
+multiple of the padded stride-4 logits' x4) the general branch, which
+upsamples every candidate to full resolution.  The maps are rendered
 by the K4 kernel (``ops/cuda/map_render.py``).  Every sort is stable, so
 ties keep index order as ``jnp.argsort`` and ``jax.lax.top_k`` do.
 """
@@ -18,7 +20,7 @@ import torch
 from ..ops.cuda.map_render import render_maps
 from ..ops.cuda.phase_fusion import phase_fusion
 from ..ops.depth import depth_act, sigmoid
-from ..ops.resize import resize_bilinear
+from ..ops.resize import resize_bilinear, resize_bilinear_matmul
 
 
 class PanopticResult(NamedTuple):
@@ -117,6 +119,22 @@ def _phase_merge_f32(masks_small, scores_d, depth_small, fy: int, fx: int):
     return pix_arg, depth_pix, row_marg, col_marg, orig_area
 
 
+def _general_merge(masks_small, scores_d, depth_small, out_hw, precise: bool):
+    """The general branch (JAX ``fuse_panoptic``'s last ``else``): every
+    candidate upsampled to (H, W) in the fusion dtype, then the argmax,
+    marginals, areas and winner depth at full resolution."""
+    kk = masks_small.shape[0]
+    masks = resize_bilinear_matmul(masks_small, out_hw, precise=precise)
+    depth_cand = resize_bilinear_matmul(depth_small, out_hw, precise=precise)
+    pix_arg = torch.argmax(scores_d[:, None, None] * masks, dim=0)
+    region = pix_arg[None] == torch.arange(kk, device=masks.device)[:, None, None]
+    row_marg = region.sum(dim=2).float()
+    col_marg = region.sum(dim=1).float()
+    orig_area = (masks >= 0.5).sum(dim=(1, 2)).to(torch.int32)
+    depth_pix = torch.gather(depth_cand, 0, pix_arg[None])[0].float()
+    return pix_arg.to(torch.int32), depth_pix, row_marg, col_marg, orig_area
+
+
 def fuse_panoptic(cfg, cls_probs: torch.Tensor, mask_logits: torch.Tensor,
                   depth_logits: torch.Tensor, depth_init_logits: torch.Tensor,
                   out_hw: Tuple[int, int], fusion_dtype=torch.float32,
@@ -147,12 +165,8 @@ def fuse_panoptic(cfg, cls_probs: torch.Tensor, mask_logits: torch.Tensor,
 
     hs, ws = mask_logits.shape[-2:]
     phased = h % hs == 0 and w % ws == 0 and 1 <= h // hs <= 8 and 1 <= w // ws <= 8
-    if not phased:
-        raise NotImplementedError(
-            f"fuse_panoptic: {hs}x{ws} -> {h}x{w} is not an integer factor <= 8; "
-            "the general fusion branch is not ported")
     fy, fx = h // hs, w // ws
-    use_kernel = fusion_dtype != torch.float32
+    use_kernel = phased and fusion_dtype != torch.float32
     n_render = None
     if use_kernel and cfg.fusion_full_things < k:
         # fusion prune: [top things, stuff] first; the rest fold into the
@@ -178,9 +192,13 @@ def fuse_panoptic(cfg, cls_probs: torch.Tensor, mask_logits: torch.Tensor,
             col_marg = torch.cat([col_marg, col_marg.new_zeros((pad, w))])
             oarea = torch.cat([oarea, oarea.new_zeros(pad)])
         orig_area = oarea.to(torch.int32)
-    else:
+    elif phased:
         pix_arg, depth_pix, row_marg, col_marg, orig_area = _phase_merge_f32(
             masks_small, scores.to(fusion_dtype), depth_small, fy, fx)
+    else:
+        pix_arg, depth_pix, row_marg, col_marg, orig_area = _general_merge(
+            masks_small, scores.to(fusion_dtype), depth_small, (h, w),
+            precise=fusion_dtype == torch.float32)
     mask_area = row_marg.sum(dim=1).to(torch.int32)
 
     score_ok = (~is_thing) | (scores >= cfg.instance_score_thr)

@@ -54,16 +54,27 @@ def resize_bilinear(x: torch.Tensor, out_hw) -> torch.Tensor:
     return resize_bilinear_matmul(x, out_hw)
 
 
-def resize_bilinear_matmul(x: torch.Tensor, out_hw) -> torch.Tensor:
+def resize_bilinear_matmul(x: torch.Tensor, out_hw, precise: bool = True) -> torch.Tensor:
     """The dense interpolation-matrix form of :func:`resize_bilinear` at any
-    factor, in f32, returned in ``x``'s dtype.  The semantic FPN's x2 uses
-    it directly, as the JAX package's ``resize_bilinear_nhwc`` does."""
+    factor, returned in ``x``'s dtype.  The semantic FPN's x2 uses it
+    directly, as the JAX package's ``resize_bilinear_nhwc`` does.
+
+    ``precise`` computes in f32 (the JAX package's HIGHEST precision).
+    ``precise=False`` on a bf16 ``x`` repeats its ``precise=False`` form:
+    the matrices and the row pass are rounded to bf16, each product summed
+    in f32."""
     out_h, out_w = int(out_hw[0]), int(out_hw[1])
     in_h, in_w = x.shape[-2:]
     if (in_h, in_w) == (out_h, out_w):
         return x
-    y = torch.einsum("oh,...hw->...ow", _matrix(in_h, out_h, x.device), x.float())
-    y = torch.einsum("pw,...ow->...op", _matrix(in_w, out_w, x.device), y)
+    rh, rw = _matrix(in_h, out_h, x.device), _matrix(in_w, out_w, x.device)
+    low = not precise and x.dtype != torch.float32
+    if low:
+        rh, rw = rh.to(x.dtype).float(), rw.to(x.dtype).float()
+    y = torch.einsum("oh,...hw->...ow", rh, x.float())
+    if low:
+        y = y.to(x.dtype).float()
+    y = torch.einsum("pw,...ow->...op", rw, y)
     return y.to(x.dtype)
 
 

@@ -18,10 +18,13 @@ the reference model's state dict and a layout transform:
 
 JAX -> port: :func:`from_jax_variables`.  Port -> JAX:
 :func:`to_jax_variables` on :func:`to_numpy_state_dict` (also used on a
-dict of gradients, which share the parameters' keys).
+dict of gradients, which share the parameters' keys).  The JAX CLIs'
+checkpoints (a ``.pkl`` of those variables as numpy arrays) load with
+:func:`load_variables`.
 """
 from __future__ import annotations
 
+import pickle
 from typing import Dict, Tuple
 
 import numpy as np
@@ -306,3 +309,41 @@ def to_numpy_state_dict(model: torch.nn.Module) -> Dict[str, np.ndarray]:
     """A copy of the port's state_dict as f32 numpy arrays, the input of
     :func:`to_jax_variables`."""
     return {k: v.detach().float().cpu().numpy().copy() for k, v in model.state_dict().items()}
+
+
+# what a pickle of nested dicts of numpy arrays names, across numpy 1 and 2
+# and pickle protocols 2-5
+_PICKLE_GLOBALS = {
+    ("numpy", "ndarray"), ("numpy", "dtype"),
+    ("numpy.core.multiarray", "_reconstruct"), ("numpy._core.multiarray", "_reconstruct"),
+    ("numpy.core.multiarray", "scalar"), ("numpy._core.multiarray", "scalar"),
+    ("numpy.core.numeric", "_frombuffer"), ("numpy._core.numeric", "_frombuffer"),
+    ("_codecs", "encode"), ("collections", "OrderedDict"),
+}
+_PICKLE_BUILTINS = {"dict", "list", "tuple", "set", "frozenset", "int", "float", "complex",
+                    "bool", "str", "bytes", "bytearray"}
+
+
+class _NumpyUnpickler(pickle.Unpickler):
+    """Admits numpy arrays, numpy scalars and builtin containers only."""
+
+    def find_class(self, module, name):
+        if (module, name) in _PICKLE_GLOBALS or (module == "builtins"
+                                                 and name in _PICKLE_BUILTINS):
+            return super().find_class(module, name)
+        if module.split(".")[0] in ("jax", "jaxlib", "flax", "optax"):
+            raise pickle.UnpicklingError(
+                f"the checkpoint holds a {module}.{name} object: pickle the variables as "
+                "numpy arrays (jax.tree_util.tree_map(np.asarray, variables)), as the JAX "
+                "package's checkpoint converter writes them")
+        raise pickle.UnpicklingError(
+            f"the checkpoint names {module}.{name}: only numpy arrays and builtin "
+            "containers are loaded")
+
+
+def load_variables(path) -> Dict:
+    """The JAX CLIs' ``--checkpoint``: a pickle of ``{'params': ...,
+    'batch_stats': ...}`` as numpy arrays, read without running any other
+    pickled code."""
+    with open(path, "rb") as f:
+        return _NumpyUnpickler(f).load()

@@ -156,13 +156,13 @@ def test_swin_bridge_round_trips_strict(backbone):
 
 def test_import_leaves_jax_out():
     """Every module of the port, and ``chip_smoke``, import neither JAX
-    (nor flax or optax) nor anything of the JAX package: the machine with
-    the card has no JAX."""
+    (nor flax or optax) nor anything of the JAX package, nor cv2 or PIL:
+    the machine with the card has none of them."""
     code = ("import importlib, pkgutil, sys, polyphonicformer_torch as p; "
             "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]; "
             "[importlib.import_module(m) for m in mods]; import chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'optax', 'polyphonicformer_tpu')]; "
+            "('jax', 'jaxlib', 'flax', 'optax', 'polyphonicformer_tpu', 'cv2', 'PIL')]; "
             "print(len(mods), bad); sys.exit(1 if bad or len(mods) < 40 else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
