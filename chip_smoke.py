@@ -39,7 +39,15 @@ streaming mode under ``torch.profiler`` (device busy time), their dumps
 bit-equal and the GT dumps equal to the decoded PNGs, ``tools/eval_image.py``
 over the split, and ``tools/demo.py`` on a 1000x2000 image (the general
 fusion branch), with the PNG decode, loader, dump-write and aggregation
-times.  Phases 4, 5, 6, 7 and 8
+times; (9) the training CLI from PNGs on disk: a 1024x2048 train split of 2
+sequences x 6 frames and a 4-frame val split (Paeth rows), the seeded
+``video_r50_1x`` weights as the JAX CLIs' checkpoint, then
+``tools/train.py`` with the process loader (8 spawn workers), batch 2, 12
+steps (the eval hook and a checkpoint at the end of each 6-step epoch), a
+resumed run to step 14 that must start from step 12's parameters and
+learning rate, and a profiled resumed run to step 18 (device busy share of
+its steps), with the loader alone, one sample's preparation by stage, the
+checkpoint save and restore times and launches a step.  Phases 4 to 9
 each count the kernel launches of their own run.  Any failed phase raises,
 so the exit code is not 0.  The last lines are the
 card, a JSON object of per-kernel results and the JSON result line
@@ -606,13 +614,16 @@ def main() -> int:
     print(f"[7 video] {json.dumps(video_info)}", flush=True)
     eval_launches, eval_info = run_eval(dev)
     print(f"[8 eval] {json.dumps(eval_info)}", flush=True)
+    train_cli_launches, train_cli_info = run_train_cli(dev)
+    print(f"[9 train_cli] {json.dumps(train_cli_info)}", flush=True)
     for r in rows:
         kernel = r.pop("kernel", r["name"])  # rows at several shapes share a kernel
         by_path = {"serve": serve_launches.get(kernel, 0),
                    "train": train_launches.get(kernel, 0),
                    "swin": swin_launches.get(kernel, 0),
                    "video": video_launches.get(kernel, 0),
-                   "eval": eval_launches.get(kernel, 0)}
+                   "eval": eval_launches.get(kernel, 0),
+                   "train_cli": train_cli_launches.get(kernel, 0)}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         _check(f"launches {r['name']}", r["launches"] > 0, "never launched on a main path")
@@ -1634,6 +1645,351 @@ def run_eval(dev):
                        "pq@inf": metrics["pq@inf"], "depth_abs_rel": metrics["depth_abs_rel"]},
         "demo": {"hw": list(DEMO_HW), "wall_s": demo_s, "launches": demo_launches},
         "launches": {k: launches[k] + image_launches[k] + demo_launches[k] for k in launches}})
+    return info["launches"], info
+
+
+TRAIN_HW = (1024, 2048)  # phase 9's frames
+TRAIN_SEQS, TRAIN_FRAMES = 2, 6  # its train split
+TRAIN_VAL_FRAMES = 4  # its val split, one sequence: the eval hook's frames
+TRAIN_BATCH = 2  # the reference's video batch a GPU (poly_r50_cityscapes_1x.py)
+TRAIN_STEPS, RESUME_STEPS, PROFILE_STEPS = 12, 14, 24  # --max-steps of the three runs
+PROFILE_AFTER = 5  # steps of the profiled run before its trace starts
+TRAIN_LOG_INTERVAL = 4
+LOADER_BATCHES = 16  # batches of the loader alone
+PREP_CLIPS = 4  # 2-frame clips whose preparation is timed in one process
+# the eval hook's f32 image step a frame: K1 in the rpn head and twice a
+# stage, the three x2 upsamples and the x4 dense depth, K4; the f32 fusion
+# merges phases without K3
+EVAL_F32_PER_FRAME = {"mask_pool": 7, "upsample2": 4, "map_render": 1}
+
+
+def _train_dir() -> str:
+    import os
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "work_dirs",
+                        "chip_smoke_train")
+
+
+def _train_prep_ms(ds, cfg) -> dict:
+    """Mean ms of one 2-frame sample's preparation in this process, by
+    stage: decode (both frames' PNGs and segments), resize, crop and flip
+    (with the shared-id check), GT prep (pad, x4 downsample, static
+    shapes); the stages of ``TrainPipeline`` with its draws."""
+    import random
+
+    from polyphonicformer_torch.data import pipeline as P
+
+    dc, mc = cfg.data, cfg.model
+    rng = random.Random(0)
+    times = {"decode": [], "resize": [], "crop_flip": [], "gt_prep": []}
+    rejected = 0
+    while len(times["gt_prep"]) < PREP_CLIPS:
+        pair = ds.get_pair(rng.randrange(len(ds)), rng)
+        if pair is None:
+            continue
+        t0 = time.perf_counter()
+        frames = [ds.load_frame(info) for info in pair]
+        t1 = time.perf_counter()
+        ratio = rng.uniform(*dc.ratio_range)
+        frames = [P.resize_frame(f, ratio, dc.max_depth) for f in frames]
+        t2 = time.perf_counter()
+        if rng.random() < dc.flip_ratio:
+            frames = [P.flip_frame(f) for f in frames]
+        h, w = frames[0]["img"].shape[:2]
+        (ch, cw), pad = dc.img_size, P.padded_hw(dc)
+        y0, x0 = rng.randint(0, max(h - ch, 0)), rng.randint(0, max(w - cw, 0))
+        cropped = [P.crop_frame(f, y0, x0, ch, cw) for f in frames]
+        t3 = time.perf_counter()
+        times["decode"].append((t1 - t0) * 1e3)
+        times["resize"].append((t2 - t1) * 1e3)
+        times["crop_flip"].append((t3 - t2) * 1e3)
+        if any(c is None for c in cropped):
+            rejected += 1
+            continue
+        [P.frame_to_sample(c, mc, pad) for c in cropped]
+        times["gt_prep"].append((time.perf_counter() - t3) * 1e3)
+    out = {k: statistics.mean(v) for k, v in times.items()}
+    out["sample"] = sum(out.values())
+    out["rejected_clips"] = rejected
+    return out
+
+
+def _train_loader_rate(ds, cfg, dev) -> dict:
+    """MPTrainLoader alone over the split: LOADER_BATCHES batches, the
+    steady samples/s without the first round of workers (its samples and
+    the time up to its last), and the seconds to the first batch."""
+    import torch
+
+    from polyphonicformer_torch.data.mp_loader import MPTrainLoader
+
+    loader = MPTrainLoader(ds, cfg.data, cfg.model, seed=0, device=dev)
+    arrivals = []
+    t0 = time.perf_counter()
+    it = iter(loader)
+    try:
+        for _ in range(LOADER_BATCHES):
+            next(it)
+            arrivals.append(time.perf_counter())
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    finally:
+        loader.stop()
+    w, b = loader.num_workers, cfg.data.batch_size
+    first = -(-w // b)  # batches of the first round
+    return {"workers": w, "batch": b, "batches": LOADER_BATCHES,
+            "first_batch_s": arrivals[0] - t0,
+            "samples_per_s": (LOADER_BATCHES - first) * b / (t_end - arrivals[first - 1])}
+
+
+def _window_busy_ms(prof, span: str):
+    """(device busy ms, wall ms, spans) of the window from the start of the
+    first host span ``span`` in the trace to the end of the last but one
+    (the last is cut by the profiler's stop): the union of the card's
+    kernels, copies and sets clipped to that window."""
+    from torch.autograd import DeviceType
+
+    from polyphonicformer_torch.tools.profile_paths import _device_events, busy_us
+
+    hosts = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.name == span and e.device_type == DeviceType.CPU)
+    _check(f"profiler spans {span}", len(hosts) >= 3, f"{len(hosts)} spans")
+    s, e = hosts[0][0], hosts[-2][1]
+    inside = [(max(a, s), min(b, e)) for _, a, b in _device_events(prof) if b > s and a < e]
+    _check(f"device events in {span}", len(inside) > 0, "the trace has none")
+    return busy_us(inside) / 1e3, (e - s) / 1e3, len(hosts) - 1
+
+
+def _bare_step_ms(cfg, ckpt: str, dev) -> dict:
+    """The CLI's train step alone: ``make_train_step(video=True)`` at batch
+    TRAIN_BATCH on one seeded synthetic 2-frame batch (24 things), 4 steps
+    closed by a synchronize each; the median of the last 3."""
+    import torch
+
+    from polyphonicformer_torch.data.synthetic import synthetic_batch
+    from polyphonicformer_torch.tools._cli import load_model
+    from polyphonicformer_torch.train.step import create_train_state, make_train_step
+
+    h, w = TRAIN_HW
+    state, opt = create_train_state(load_model(ckpt, cfg.model, dev), cfg, None,
+                                    steps_per_epoch=1000, device=dev)
+    step = make_train_step(state.model, cfg, opt, video=True)
+    batch = synthetic_batch(cfg.model, TRAIN_BATCH, (h, w), two_frame=True, seed=0,
+                            max_instances=24, device=dev)
+    walls = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    _finite_metrics("bare train_cli step", {k: float(v) for k, v in metrics.items()})
+    return {"warm_steps_ms": walls[1:], "median_warm_step_ms": statistics.median(walls[1:])}
+
+
+def _metric_lines(path: str) -> list:
+    import math
+
+    with open(path) as f:
+        lines = [json.loads(line) for line in f]
+    bad = [(r["step"], k) for r in lines for k, v in r.items() if not math.isfinite(v)]
+    _check("train metrics finite", not bad, f"non-finite {bad}")
+    _check("train metrics guard", all(r["skipped_nonfinite"] == 0.0 for r in lines),
+           "a step was skipped")
+    return lines
+
+
+def run_train_cli(dev):
+    """Phase 9: the training CLI at full width from PNGs on disk."""
+    import math
+    import os
+    import pickle
+    import shutil
+
+    import torch
+
+    from polyphonicformer_torch.configs import apply_overrides, parse_overrides, preset
+    from polyphonicformer_torch.data.cityscapes_dvps import CityscapesDVPSDataset
+    from polyphonicformer_torch.data.synthetic_split import write_dvps_split
+    from polyphonicformer_torch.evalutils import runner
+    from polyphonicformer_torch.ops import native
+    from polyphonicformer_torch.tools import train
+    from polyphonicformer_torch.train import checkpoint
+    from polyphonicformer_torch.weights import to_jax_variables, to_numpy_state_dict
+
+    kernels = _kernels()
+    work = _train_dir()
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    sets = [f"data.batch_size={TRAIN_BATCH}", "data.repeat_times=1",
+            f"schedule.log_interval={TRAIN_LOG_INTERVAL}"]
+    cfg = apply_overrides(preset("video_r50_1x"), parse_overrides(sets))
+    eval_runs, restores = [], []
+    real_eval, real_restore = runner.evaluate_frames, checkpoint.restore_state
+
+    def counted_eval(*a, **kw):  # the hook's launches, apart from the steps'
+        before = {n: k.launches for n, k in kernels.items()}
+        out = real_eval(*a, **kw)
+        eval_runs.append({n: k.launches - before[n] for n, k in kernels.items()})
+        return out
+
+    def checked_restore(mgr, state, opt, step=None):
+        state = real_restore(mgr, state, opt, step)
+        saved = torch.load(mgr.file(int(state.step)), map_location="cpu", weights_only=True)
+        diff = max(float((p.detach().cpu() - saved["model"][n]).abs().max())
+                   for n, p in state.model.named_parameters())
+        restores.append({"step": int(state.step), "max_param_diff": diff,
+                         "last_epoch": opt.scheduler.last_epoch,
+                         "lr": [g["lr"] for g in opt.adamw.param_groups],
+                         "saved_lr": [g["lr"] for g in saved["optimizer"]["adamw"]["param_groups"]]})
+        return state
+
+    runner.evaluate_frames, checkpoint.restore_state = counted_eval, checked_restore
+    try:
+        root = os.path.join(work, "data")
+        h, w = TRAIN_HW
+        t0 = time.perf_counter()
+        write_dvps_split(root, "train", TRAIN_SEQS, TRAIN_FRAMES, h, w, seed=0, filter_type=4)
+        write_dvps_split(root, "val", 1, TRAIN_VAL_FRAMES, h, w, seed=1, filter_type=4)
+        write_s = time.perf_counter() - t0
+        mcfg, model, _ = _serving_model("video_r50_1x", dev)
+        ckpt = os.path.join(work, "video_r50_1x_seed0.pkl")
+        with open(ckpt, "wb") as f:
+            pickle.dump(to_jax_variables(to_numpy_state_dict(model), mcfg), f)
+        del model
+        native.load()  # raises if the native resizes do not build
+        ds = CityscapesDVPSDataset(root, split="train", ref_sample_mode="random",
+                                   ref_seq_index=cfg.data.ref_seq_index)
+        info = {"preset": "video_r50_1x", "hw": [h, w], "batch": TRAIN_BATCH,
+                "train_frames": len(ds), "val_frames": TRAIN_VAL_FRAMES, "png_filter": "Paeth",
+                "split_write_s": write_s,
+                "prep_ms": _train_prep_ms(ds, cfg), "loader": _train_loader_rate(ds, cfg, dev)}
+        run_dir = os.path.join(work, "run")
+        common = ["--preset", "video_r50_1x", "--data-root", root, "--work-dir", run_dir,
+                  "--load-from", ckpt, "--loader", "process", "--set", *sets]
+
+        def cli(steps: int, *extra):
+            for k in kernels.values():
+                k.launches = 0
+            eval_runs.clear()
+            t0 = time.perf_counter()
+            out = train.main(common + ["--max-steps", str(steps), *extra])
+            torch.cuda.synchronize()
+            out["cli_wall_s"] = time.perf_counter() - t0
+            evals = {n: sum(r[n] for r in eval_runs) for n in kernels}
+            n_steps = out["end_step"] - out["start_step"]
+            steps_only = {n: k.launches - evals[n] for n, k in kernels.items()}
+            for n, v in steps_only.items():
+                _check(f"train_cli launches {n}", v == PER_STEP.get(n, 0) * n_steps,
+                       f"{v} launches in {n_steps} steps, expected {PER_STEP.get(n, 0)} a step")
+            n_frames = len(out["evals"]) * TRAIN_VAL_FRAMES
+            for n, v in evals.items():
+                _check(f"train_cli eval launches {n}", v == EVAL_F32_PER_FRAME.get(n, 0) * n_frames,
+                       f"{v} launches in {n_frames} eval frames")
+            out["launches"] = {n: k.launches for n, k in kernels.items()}
+            out["step_launches"] = steps_only
+            return out
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        main_run = cli(TRAIN_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        lines = _metric_lines(main_run["metrics_path"])
+        size = os.path.getsize(main_run["saves"][-1]["path"])
+        spe = main_run["steps_per_epoch"]
+        _check("train_cli steps", (main_run["start_step"], main_run["end_step"], spe)
+               == (0, TRAIN_STEPS, len(ds) // TRAIN_BATCH), json.dumps(
+                   {k: main_run[k] for k in ("start_step", "end_step", "steps_per_epoch")}))
+        _check("train_cli log lines", [r["step"] for r in lines]
+               == list(range(TRAIN_LOG_INTERVAL, TRAIN_STEPS + 1, TRAIN_LOG_INTERVAL)),
+               f"{[r['step'] for r in lines]}")
+        _check("train_cli saves", [s["step"] for s in main_run["saves"]]
+               == list(range(spe, TRAIN_STEPS + 1, spe)), json.dumps(main_run["saves"]))
+        _check("train_cli evals", [e["step"] for e in main_run["evals"]]
+               == list(range(spe, TRAIN_STEPS + 1, spe)) and all(
+                   math.isfinite(v) for e in main_run["evals"] for v in e["metrics"].values()),
+               json.dumps(main_run["evals"]))
+
+        resume = cli(RESUME_STEPS, "--resume", "--eval-every-epochs", "0")
+        _check("train_cli resume", (resume["start_step"], resume["end_step"])
+               == (TRAIN_STEPS, RESUME_STEPS) and len(restores) == 1
+               and restores[0]["step"] == TRAIN_STEPS and restores[0]["max_param_diff"] == 0.0
+               and restores[0]["last_epoch"] == TRAIN_STEPS
+               and restores[0]["lr"] == restores[0]["saved_lr"], json.dumps(restores))
+        _metric_lines(resume["metrics_path"])
+
+        # a trace of steps PROFILE_AFTER + 1 on of a resumed run, after its
+        # workers' first round: the profiler starts and stops from the step
+        from torch.profiler import ProfilerActivity, profile
+
+        from polyphonicformer_torch.train import step as step_mod
+
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        real_make = step_mod.make_train_step
+
+        def traced_make(*a, **kw):
+            fn, calls = real_make(*a, **kw), []
+
+            def traced(state, batch):
+                out = fn(state, batch)
+                calls.append(1)
+                if len(calls) == PROFILE_AFTER:
+                    prof.start()
+                elif len(calls) == PROFILE_STEPS - RESUME_STEPS:
+                    prof.stop()
+                return out
+            return traced
+
+        step_mod.make_train_step = traced_make
+        try:
+            profiled = cli(PROFILE_STEPS, "--resume", "--eval-every-epochs", "0")
+        finally:
+            step_mod.make_train_step = real_make
+        busy_ms, window_ms, traced_steps = _window_busy_ms(prof, "train.step")
+        bare = _bare_step_ms(cfg, ckpt, dev)
+        kept = [s for s in range(RESUME_STEPS + 1, PROFILE_STEPS + 1)
+                if s % spe == 0 or s == PROFILE_STEPS][-2:]
+        _check("train_cli checkpoints kept", checkpoint.make_manager(run_dir).steps() == kept,
+               f"{checkpoint.make_manager(run_dir).steps()}, expected {kept}")
+    finally:
+        runner.evaluate_frames, checkpoint.restore_state = real_eval, real_restore
+        shutil.rmtree(work, ignore_errors=True)
+
+    walls = [s * 1e3 for s in main_run["step_wall_s"][1:]]
+    in_loader = [s * 1e3 for s in main_run["loader_s"][1:]]
+    waits = [s * 1e3 for s in main_run["sample_wait_s"][1:]]
+    last = slice(-TRAIN_LOG_INTERVAL, None)  # the steps of the last log interval
+    steady = lines[-1]
+    info.update({
+        "cli_wall_s": main_run["cli_wall_s"],
+        # the last log interval: no save or evaluation inside it
+        "steady_samples_per_s": steady["samples_per_sec"],
+        "steady_steps_per_s": steady["samples_per_sec"] / TRAIN_BATCH,
+        "samples_per_s_by_interval": [r["samples_per_sec"] for r in lines],
+        # host wall of a step inside the CLI (loader wait, transfer, the
+        # queued step), the first left out
+        "median_step_wall_ms": statistics.median(walls), "step_wall_ms": walls,
+        # the part of it in the loader (waiting for samples, the copy into
+        # pinned staging after its CUDA event, the transfer), and of that the
+        # wait for samples
+        "loader_ms": in_loader, "sample_wait_ms": waits,
+        "steady_median_step_wall_ms": statistics.median(walls[last]),
+        "steady_median_loader_ms": statistics.median(in_loader[last]),
+        "steady_median_sample_wait_ms": statistics.median(waits[last]),
+        "total_loss": [r["total_loss"] for r in lines],
+        "peak_mem_gib": peak / 2 ** 30,
+        "checkpoint": {"save_s": [s["s"] for s in main_run["saves"]],
+                       "restore_s": resume["restore_s"], "file_mib": size / 2 ** 20},
+        "eval_hook": [{"step": e["step"], "s": e["s"], "pq@inf": e["metrics"]["pq@inf"],
+                       "depth_abs_rel": e["metrics"]["depth_abs_rel"]}
+                      for e in main_run["evals"]],
+        "resume": {"start_step": resume["start_step"], "end_step": resume["end_step"],
+                   "restored": restores[0], "cli_wall_s": resume["cli_wall_s"]},
+        "bare_step": bare,
+        "profiled": {"steps": traced_steps, "window_ms": window_ms,
+                     "device_busy_ms": busy_ms, "busy_share": busy_ms / window_ms},
+        "launches_a_step": {n: main_run["step_launches"][n] / TRAIN_STEPS for n in PER_STEP},
+        "launches": {n: main_run["launches"][n] + resume["launches"][n]
+                     + profiled["launches"][n] for n in kernels}})
     return info["launches"], info
 
 

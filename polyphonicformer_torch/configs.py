@@ -6,14 +6,14 @@ reads, under the same names and with the same defaults (the reference's
 ``configs/_base_/models/polyphonic_former.py``,
 ``configs/_base_/schedules/schedule_{1x,2x}.py`` and the leaf configs named
 at each preset), so the port and everything it runs on import nothing of
-the JAX package.  The loader fields wait for the slice that reads them.
+the JAX package (the parallel mesh excepted: the port trains on one card).
 ``tests/test_torch_configs.py`` holds each preset field for field against
 the JAX package's.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Sequence, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,11 +138,24 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    img_size: Tuple[int, int] = (1024, 2048)  # (H, W) crop
+    # reference: configs/_base_/datasets/cityscapes_dvps.py
+    data_root: str = "data/cityscapes-dvps"
+    split: str = "train"
+    ref_sample_mode: str = "random"
+    ref_seq_index: Tuple[int, ...] = ()
+    img_size: Tuple[int, int] = (1024, 2048)  # (H, W) crop / pad target
+    ratio_range: Tuple[float, float] = (1.0, 2.0)
+    flip_ratio: float = 0.5
     size_divisor: int = 32
     mean: Tuple[float, float, float] = (123.675, 116.28, 103.53)
     std: Tuple[float, float, float] = (58.395, 57.12, 57.375)
+    max_depth: float = 80.0
+    repeat_times: int = 8
     batch_size: int = 8  # global batch
+    num_workers: int = 8
+    check_id_match: int = 80000
+    shuffle: bool = True
+    seed: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,6 +169,9 @@ class ScheduleConfig:
     lr_decay_epochs: Tuple[int, ...] = (16, 22)
     lr_decay_factor: float = 0.1
     total_epochs: int = 24
+    checkpoint_interval: int = 1  # epochs
+    max_keep_checkpoints: int = 2
+    log_interval: int = 50  # steps
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,6 +179,10 @@ class ExperimentConfig:
     model: ModelConfig = ModelConfig()
     data: DataConfig = DataConfig()
     schedule: ScheduleConfig = ScheduleConfig()
+    work_dir: str = "work_dirs/default"
+    seed: int = 0
+    load_from: Optional[str] = None
+    resume: bool = False
 
 
 def _debug_tiny() -> ExperimentConfig:
@@ -170,13 +190,17 @@ def _debug_tiny() -> ExperimentConfig:
     return ExperimentConfig(
         model=ModelConfig(out_channels=64, fpn_out_channels=64, feedforward_channels=128,
                           num_proposals=20, max_things=8),
-        data=DataConfig(img_size=(128, 256), batch_size=1),
-        schedule=ScheduleConfig(warmup_iters=10, total_epochs=1, lr_decay_epochs=(1,)))
+        data=DataConfig(img_size=(128, 256), ratio_range=(1.0, 1.1), batch_size=1,
+                        num_workers=1, repeat_times=1),
+        schedule=ScheduleConfig(warmup_iters=10, total_epochs=1, lr_decay_epochs=(1,),
+                                log_interval=1),
+        work_dir="work_dirs/debug_tiny")
 
 
 def _debug_tiny_video() -> ExperimentConfig:
     cfg = _debug_tiny()
-    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, with_track=True))
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, with_track=True),
+                               data=dataclasses.replace(cfg.data, ref_seq_index=(-1, 1)))
 
 
 # backbone -> (embed dim, blocks per stage, heads per stage); JAX
@@ -188,20 +212,22 @@ SWIN_SPECS = {"swin_tiny": (96, (2, 2, 6, 2), (3, 6, 12, 24)),
 def _video_r50_1x() -> ExperimentConfig:
     return ExperimentConfig(
         model=ModelConfig(with_track=True, rpn_depth_loss=DepthLossConfig(loss_weight=1.0)),
-        data=DataConfig(batch_size=16),
-        schedule=ScheduleConfig(lr=2e-4, total_epochs=12, lr_decay_epochs=(8, 11)))
+        data=DataConfig(ref_seq_index=(-2, -1, 1, 2), repeat_times=4, batch_size=16),
+        schedule=ScheduleConfig(lr=2e-4, total_epochs=12, lr_decay_epochs=(8, 11)),
+        work_dir="work_dirs/poly_r50_video_1x")
 
 
 def _video_swinl() -> ExperimentConfig:
     """The video model on Swin-L, served in bf16 (BASELINE.json config #5)."""
     cfg = _video_r50_1x()
     return dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, backbone="swin_large", compute_dtype="bfloat16"))
+        cfg.model, backbone="swin_large", compute_dtype="bfloat16"),
+        work_dir="work_dirs/poly_swinl_video")
 
 
 PRESETS = {
     # reference configs/polyphonic_image/poly_r50_cityscapes_2x.py
-    "image_r50_2x": lambda: ExperimentConfig(),
+    "image_r50_2x": lambda: ExperimentConfig(work_dir="work_dirs/poly_r50_image_2x"),
     # reference configs/polyphonic_video/poly_r50_cityscapes_1x.py
     "video_r50_1x": _video_r50_1x,
     # the JAX package's video_swinl: video_r50_1x on swin_large, in bf16

@@ -1,14 +1,13 @@
-"""Image-mode evaluation runner; the single-process part of
-``polyphonicformer_tpu/evalutils/runner.py`` over the port's
-``make_image_step``.
+"""Image-mode evaluation runner and the training CLI's eval hook; the
+single-process part of ``polyphonicformer_tpu/evalutils/runner.py`` over
+the port's ``make_image_step``.
 
 The sharded evaluation (``allgather_frame_stats``, ``sharded=True``) waits
-for the port's distributed slice, and ``make_eval_hook`` for its training
-CLI.
+for the port's distributed slice (ROADMAP item 1.6).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -108,3 +107,36 @@ def evaluate_frames(model_cfg, data_cfg, model, ds, frames,
     vpq_stats, depth_stats = _infer_frame_stats(
         model_cfg, data_cfg, model, ds, frames, bf16, verbose)
     return metrics_from_stats(vpq_stats, depth_stats)
+
+
+def make_eval_hook(cfg, model_fn: Callable, max_images: Optional[int] = 50,
+                   split: str = "val", sharded: bool = False, bf16: bool = False):
+    """``hook(step) -> dict`` of :func:`evaluate_frames` on ``model_fn()``
+    over the first ``max_images`` frames of ``split`` (None or 0: all of
+    them; reference EvalHook, mmdet/apis/train.py:183-204), or None, with
+    the reason printed, when the split is absent or empty."""
+    from ..data.cityscapes_dvps import CityscapesDVPSDataset
+
+    if sharded:
+        raise NotImplementedError("make_eval_hook(sharded=True): the port's distributed "
+                                  "evaluation is ROADMAP item 1.6")
+    try:
+        ds = CityscapesDVPSDataset(cfg.data.data_root, split=split, ref_sample_mode="img",
+                                   with_depth=True)
+    except FileNotFoundError as e:  # val split not on disk
+        print(f"eval hook disabled ({e})")
+        return None
+    frames = ds.images if not max_images else ds.images[:max_images]
+    if not frames:
+        print("eval hook disabled (empty val split)")
+        return None
+
+    def hook(step: int) -> Dict[str, float]:
+        metrics = evaluate_frames(cfg.model, cfg.data, model_fn(), ds, frames, bf16=bf16)
+        flat = {k: v for k, v in metrics.items() if isinstance(v, float)}
+        summary = " ".join(f"{k}={v:.4f}" for k, v in sorted(flat.items())
+                           if k in ("pq@inf", "pq_thing@inf", "pq_stuff@inf", "depth_abs_rel"))
+        print(f"[eval @ step {step}] {summary} ({len(frames)} frames)", flush=True)
+        return flat
+
+    return hook

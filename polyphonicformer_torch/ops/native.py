@@ -1,6 +1,7 @@
 """The port's native host library: the VPQ statistics core (a copy of the
-JAX package's ``native/vpq_core.cpp``) and the PNG scanline unfilter, both
-in ``polyphonicformer_torch/native/``.
+JAX package's ``native/vpq_core.cpp``), the PNG scanline unfilter and
+cv2's fixed-point bilinear and nearest resizes of uint8 images, all in
+``polyphonicformer_torch/native/``.
 
 The sources compile with one ``g++ -O3`` the first time a function here is
 called, into ``polyphonicformer_torch/_build/`` (git-ignored) under a name
@@ -9,7 +10,9 @@ build writes a temporary file and renames it into place, so processes that
 build at once (test workers, decode workers) never load a partial file.
 There is no fallback: a library that does not build or load raises.  The
 Python VPQ of ``evalutils/vpq.py`` is the plain version the tests hold this
-one to.  Importing this module builds nothing and imports no ``torch``.
+one to, ``data/png.py::unfilter_plain`` the unfilter's and
+``data/resize.py``'s numpy versions the resizes'.  Importing this
+module builds nothing and imports no ``torch``.
 """
 from __future__ import annotations
 
@@ -73,6 +76,10 @@ def load() -> ctypes.CDLL:
         lib.vpq_stats.argtypes = [_P, _P, _I64, _I32, _I64, _I64, _P, _P, _P, _P]
         lib.png_unfilter.restype = _I64
         lib.png_unfilter.argtypes = [_P, _P, _I64, _I64, _I32]
+        lib.resize_linear_u8.restype = _I64
+        lib.resize_linear_u8.argtypes = [_P, _I64, _I64, _I64, _P, _I64, _I64, _P, _P, _P, _P]
+        lib.resize_nearest_u8.restype = _I64
+        lib.resize_nearest_u8.argtypes = [_P, _I64, _I64, _I64, _P, _I64, _I64, _P, _P]
         _lib = lib
         return lib
 
@@ -110,4 +117,43 @@ def png_unfilter(raw: np.ndarray, rows: int, row_bytes: int, bpp: int) -> np.nda
     if rc != 0:
         row = -rc - 1
         raise ValueError(f"PNG row {row}: unknown filter type {int(raw[row * (row_bytes + 1)])}")
+    return out
+
+
+def resize_linear_u8(img: np.ndarray, dh: int, dw: int, xofs: np.ndarray, xa: np.ndarray,
+                     yofs: np.ndarray, yb: np.ndarray) -> np.ndarray:
+    """cv2's INTER_LINEAR of a (h, w, c) uint8 image to (dh, dw, c) through
+    the tap tables of ``data/resize.py::linear_taps`` (x clamped, y not)."""
+    if img.dtype != np.uint8 or img.ndim != 3:
+        raise ValueError(f"resize_linear_u8: need (h, w, c) uint8, got {img.dtype} {img.shape}")
+    img = np.ascontiguousarray(img)
+    xofs = np.ascontiguousarray(xofs, np.int32)
+    yofs = np.ascontiguousarray(yofs, np.int32)
+    xa = np.ascontiguousarray(xa, np.int16)
+    yb = np.ascontiguousarray(yb, np.int16)
+    if xofs.shape != (dw,) or xa.shape != (dw, 2) or yofs.shape != (dh,) or yb.shape != (dh, 2):
+        raise ValueError("resize_linear_u8: tap tables do not match the output size")
+    h, w, c = img.shape
+    out = np.empty((dh, dw, c), np.uint8)
+    rc = load().resize_linear_u8(_ptr(img), h, w, c, _ptr(out), dh, dw, _ptr(xofs), _ptr(xa),
+                                 _ptr(yofs), _ptr(yb))
+    if rc != 0:
+        raise ValueError(f"resize_linear_u8 failed rc={rc}")
+    return out
+
+
+def resize_nearest_u8(x: np.ndarray, yidx: np.ndarray, xidx: np.ndarray) -> np.ndarray:
+    """cv2's INTER_NEAREST of a (n, h, w) uint8 stack: output (y, x) of each
+    plane is its source (yidx[y], xidx[x])."""
+    if x.dtype != np.uint8 or x.ndim != 3:
+        raise ValueError(f"resize_nearest_u8: need (n, h, w) uint8, got {x.dtype} {x.shape}")
+    x = np.ascontiguousarray(x)
+    yidx = np.ascontiguousarray(yidx, np.int64)
+    xidx = np.ascontiguousarray(xidx, np.int64)
+    n, h, w = x.shape
+    out = np.empty((n, yidx.size, xidx.size), np.uint8)
+    rc = load().resize_nearest_u8(_ptr(x), n, h, w, _ptr(out), yidx.size, xidx.size,
+                                  _ptr(yidx), _ptr(xidx))
+    if rc != 0:
+        raise ValueError(f"resize_nearest_u8: index out of range rc={rc}")
     return out

@@ -115,3 +115,14 @@ class Optimizer:
     def step(self) -> None:
         self.adamw.step()
         self.scheduler.step()
+
+    def state_dict(self) -> Dict:
+        """AdamW's state (moments and step counts, on the parameters'
+        device) and the schedule's position (``LambdaLR.last_epoch``)."""
+        return {"adamw": self.adamw.state_dict(), "scheduler": self.scheduler.state_dict()}
+
+    def load_state_dict(self, state: Dict) -> None:
+        """Restore :meth:`state_dict`: the next :meth:`step` continues the
+        moments and the learning-rate schedule where the saved one stopped."""
+        self.adamw.load_state_dict(state["adamw"])
+        self.scheduler.load_state_dict(state["scheduler"])
