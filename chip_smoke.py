@@ -6,7 +6,7 @@ Phases: (1) the device; (2) the build of the hand-written kernels from
 ``polyphonicformer_torch/csrc``, and their tensor-core instructions in
 ``cuobjdump -sass`` (the bf16 K7/K8 and K1 must have some); (3) each
 kernel against its plain PyTorch version at the shapes the serving and
-training paths give it, timed beside the plain version and, where one
+training paths give it (the training CLI's batch-2 shapes among them), timed beside the plain version and, where one
 PyTorch call computes the same function,
 that call, with the least time the card could take (bytes over 3.35 TB/s or
 operations over the peak of their type, whichever is larger), and the
@@ -45,8 +45,11 @@ sequences x 6 frames and a 4-frame val split (Paeth rows), the seeded
 ``tools/train.py`` with the process loader (8 spawn workers), batch 2, 12
 steps (the eval hook and a checkpoint at the end of each 6-step epoch), a
 resumed run to step 14 that must start from step 12's parameters and
-learning rate, and a profiled resumed run to step 18 (device busy share of
-its steps), with the loader alone, one sample's preparation by stage, the
+learning rate, and a profiled resumed run to step 24 (device busy share of
+its steps), with a debug-size batch-2 video step on the card against the
+same step on the card's plain route (its distance from the CPU's f64 step
+reported), the loader alone at 8, 4 and 2 workers, one sample's
+preparation by stage (``make_sample`` with its stages timed in place), the
 checkpoint save and restore times and launches a step.  Phases 4 to 9
 each count the kernel launches of their own run.  Any failed phase raises,
 so the exit code is not 0.  The last lines are the
@@ -157,46 +160,51 @@ def _exact(name, got, want) -> float:
     return float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
 
 
+def _pool_row(name, logits, feats) -> dict:
+    """K1 against its plain version (rtol 1e-5 of sum |feat| over each
+    mask), twice for equal bits, then timed.  Library: the cuBLAS
+    product of the pre-thresholded mask in the features' dtype (the
+    threshold itself is outside the timed call)."""
+    import torch
+
+    from polyphonicformer_torch.ops.cuda import mask_pool
+
+    got = mask_pool.masked_pool(logits, feats)
+    again = mask_pool.masked_pool(logits, feats)
+    torch.cuda.synchronize()
+    want = mask_pool.mask_pool_plain(logits, feats)
+    hard = (torch.sigmoid(logits.float()) > 0.5).float()
+    bound = 1e-5 * torch.einsum("bnhw,bhwc->bnc", hard, feats.float().abs()) + 1e-6
+    diff = (got - want).abs()
+    _check(name, bool((diff <= bound).all()),
+           f"max err {float(diff.max())} beyond rtol 1e-5 of sum|feat|")
+    _check(name, torch.equal(got, again), "two launches differ")
+    hard = hard.to(feats.dtype).flatten(2)
+    feats_flat = feats.flatten(1, 2)
+    # f32 features: three exact bf16 products on the tensor cores
+    ops = 2.0 * logits.numel() * feats.shape[-1] * (3 if feats.dtype == torch.float32 else 1)
+    return dict(
+        name=name, kernel="mask_pool", route="cuda",
+        source="polyphonicformer_torch/csrc/mask_pool.cu",
+        replaces="polyphonicformer_tpu/ops/pallas/mask_pool.py:45",
+        max_abs_err=float(diff.max()),
+        ms=_time_ms(lambda: mask_pool.masked_pool(logits, feats)),
+        plain_ms=_time_ms(lambda: mask_pool.mask_pool_plain(logits, feats)),
+        library_ms=_time_ms(lambda: torch.matmul(hard, feats_flat)),
+        shape=f"logits {tuple(logits.shape)} {logits.dtype}, feats NCHW "
+              f"{tuple(feats.permute(0, 3, 1, 2).shape)} {feats.dtype}",
+        **_bound(_nbytes(logits, feats, got), ops, "bf16"))
+
+
 def check_kernels(dev, gen) -> list[dict]:
     """Phase 3: every kernel of the serving path against its plain version."""
     import torch
 
     from torch.nn import functional as F
 
-    from polyphonicformer_torch.ops.cuda import map_render, mask_pool, phase_fusion, upsample2
+    from polyphonicformer_torch.ops.cuda import map_render, phase_fusion, upsample2
 
     rows = []
-
-    def pool_row(name, logits, feats):
-        """K1 against its plain version (rtol 1e-5 of sum |feat| over each
-        mask), twice for equal bits, then timed.  Library: the cuBLAS
-        product of the pre-thresholded mask in the features' dtype (the
-        threshold itself is outside the timed call)."""
-        got = mask_pool.masked_pool(logits, feats)
-        again = mask_pool.masked_pool(logits, feats)
-        torch.cuda.synchronize()
-        want = mask_pool.mask_pool_plain(logits, feats)
-        hard = (torch.sigmoid(logits.float()) > 0.5).float()
-        bound = 1e-5 * torch.einsum("bnhw,bhwc->bnc", hard, feats.float().abs()) + 1e-6
-        diff = (got - want).abs()
-        _check(name, bool((diff <= bound).all()),
-               f"max err {float(diff.max())} beyond rtol 1e-5 of sum|feat|")
-        _check(name, torch.equal(got, again), "two launches differ")
-        hard = hard.to(feats.dtype).flatten(2)
-        feats_flat = feats.flatten(1, 2)
-        # f32 features: three exact bf16 products on the tensor cores
-        ops = 2.0 * logits.numel() * feats.shape[-1] * (3 if feats.dtype == torch.float32 else 1)
-        return dict(
-            name=name, kernel="mask_pool", route="cuda",
-            source="polyphonicformer_torch/csrc/mask_pool.cu",
-            replaces="polyphonicformer_tpu/ops/pallas/mask_pool.py:45",
-            max_abs_err=float(diff.max()),
-            ms=_time_ms(lambda: mask_pool.masked_pool(logits, feats)),
-            plain_ms=_time_ms(lambda: mask_pool.mask_pool_plain(logits, feats)),
-            library_ms=_time_ms(lambda: torch.matmul(hard, feats_flat)),
-            shape=f"logits {tuple(logits.shape)} {logits.dtype}, feats NCHW "
-                  f"{tuple(feats.permute(0, 3, 1, 2).shape)} {feats.dtype}",
-            **_bound(_nbytes(logits, feats, got), ops, "bf16"))
 
     # K1 mask_pool: each stage (111 rows) and the rpn head (100 rows); feats
     # are the NCHW module tensors seen as (B, h, w, C) views, bf16 when
@@ -205,10 +213,10 @@ def check_kernels(dev, gen) -> list[dict]:
     feats_hwc = feats.permute(0, 2, 3, 1)
     for n, name in ((111, "mask_pool"), (100, "mask_pool_n100")):
         logits = torch.randn((1, n, 128, 256), generator=gen, device=dev).to(torch.bfloat16)
-        rows.append(pool_row(name, logits, feats_hwc))
+        rows.append(_pool_row(name, logits, feats_hwc))
     logits = torch.randn((1, 111, 128, 256), generator=gen, device=dev)
     feats32 = torch.randn((1, 256, 128, 256), generator=gen, device=dev).permute(0, 2, 3, 1)
-    rows.append(pool_row("mask_pool_f32", logits, feats32))
+    rows.append(_pool_row("mask_pool_f32", logits, feats32))
     del feats32
 
     # K2 upsample, bit-equal: x2 of the serving stage masks, of the stacked
@@ -431,66 +439,120 @@ def check_window_grads(dev, gen) -> dict:
 def check_train_kernels(dev, gen) -> list[dict]:
     """Phase 3, training shapes: K2b, K5, K6 and K6b against their plain
     versions at the shapes of the image-model train step at 1024x2048."""
-    import torch
-
-    from polyphonicformer_torch.ops.cuda import lsa, upsample2
-    from polyphonicformer_torch.ops.hungarian import match_gt_to_preds_batched
-    from polyphonicformer_torch.tools import kernel_probe
-
-    rows = []
     # K2b: gradients of the x2 upsamples of (1+3 stages x 111) mask logits
     # and of the 19 semantic logits, bit-equal
-    err = 0.0
-    for n in (444, 19):
-        g = torch.randn((n, 256, 512), generator=gen, device=dev)
-        got = upsample2._upsample_int_bwd_cuda(g, 2, 2)
-        torch.cuda.synchronize()
-        err = max(err, _exact(f"upsample bwd n={n}", got,
-                              upsample2.upsample_int_bwd_plain(g, 2, 2)))
-        if n == 444:
-            g444, dx444 = g, got
-    lib_args = (g444[:, None], [256, 512], [444, 1, 128, 256], False, 2.0, 2.0)
-    rows.append(dict(
-        name="upsample2_bwd", route="cuda", source="polyphonicformer_torch/csrc/upsample.cu",
-        replaces="polyphonicformer_tpu/ops/pallas/upsample2.py:172", max_abs_err=err,
-        ms=_time_ms(lambda: upsample2._upsample_int_bwd_cuda(g444, 2, 2)),
-        plain_ms=_time_ms(lambda: upsample2.upsample_int_bwd_plain(g444, 2, 2)),
-        library_ms=_time_ms(lambda: torch.ops.aten.upsample_bilinear2d_backward(*lib_args)),
-        **_bound(_nbytes(g444, dx444))))
-
-    # K5: 16 seeded (64 GT x 100 predictions) problems, 12-40 valid rows
-    # each, some invalid rows between valid ones; raw costs, handed over as
-    # the assignment hands them: a transposed view of (16, 100, 64)
-    costs = torch.randn((16, 64, 100), generator=gen, device=dev) * 2
-    counts = torch.randint(12, 41, (16,), generator=gen, device=dev)
-    valid = torch.arange(64, device=dev)[None] < counts[:, None]
-    holes = torch.rand((16, 64), generator=gen, device=dev) < 0.15
-    valid = valid & ~(holes & (torch.arange(64, device=dev) < 10))
-    raw = costs.transpose(1, 2).contiguous().transpose(1, 2)
-    got = match_gt_to_preds_batched(raw, valid)
-    torch.cuda.synchronize()
-    steps = []
-    want = lsa.solve_lsa_plain(raw.cpu(), valid.cpu(), steps)
-    _check("lsa", torch.equal(got.cpu(), want), "assignments differ from the plain solver")
-    _check("lsa", torch.equal(lsa.solve_lsa(raw, valid), got), "two launches differ")
-    # its latency bound: the longest problem's Dijkstra steps x one warp-wide
-    # argmin step (tools/kernel_probe.py)
-    step_us = kernel_probe.warp_step_us(dev, 16, 100)
-    ms = _time_ms(lambda: lsa.solve_lsa(raw, valid))
-    rows.append(dict(
-        name="lsa", route="cuda", source="polyphonicformer_torch/csrc/lsa.cu",
-        replaces="polyphonicformer_tpu/ops/pallas/lsa.py:133", max_abs_err=0.0, ms=ms,
-        plain_ms=_time_ms(lambda: lsa.solve_lsa_plain(raw, valid), reps=3),
-        library_ms=None, **_bound(_nbytes(raw, valid, got)),
-        dijkstra_steps_longest=max(steps), warp_argmin_step_us=step_us,
-        latency_bound_us=max(steps) * step_us,
-        latency_bound_share=max(steps) * step_us / (ms * 1e3)))
+    rows = [_upsample_row(dev, gen, (444, 19), "upsample2_bwd", bwd=True)]
+    rows.append(_lsa_row(dev, gen, 16, "lsa"))
 
     # K6 / K6b on the three refinement stages' mask volume and on the rpn
     # head's, the train step's two calls
     for shape, sfx in (((3, 111, 256, 512), ""), ((1, 100, 256, 512), "_n100")):
         rows += mask_loss_rows(dev, gen, shape, sfx)
     return rows
+
+
+def check_train_cli_kernels(dev, gen) -> list[dict]:
+    """Phase 3, the training CLI's shapes: phase 9's ``video_r50_1x`` step
+    at batch TRAIN_BATCH and 1024x2048 stacks the batch's images along the
+    leading axes.  K1 f32 on the batch's (B, 111) and (B, 100) logits over
+    strided NHWC views of NCHW features; K2 and K2b on the x2 upsamples of
+    the stacked masks (B x 4 x 111), stage depths (B x 3 x 111), semantic
+    logits (B x 19) and dense depths (B); K5 on the step's 3 B problems; K6
+    and K6b on the batch's stage (3 B, 111) and rpn (B, 100) volumes; each
+    at the tolerance of its batch-1 row."""
+    import torch
+
+    b = TRAIN_BATCH
+    rows = []
+    feats = torch.randn((b, 256, 128, 256), generator=gen, device=dev).permute(0, 2, 3, 1)
+    for n, sfx in ((111, ""), (100, "_n100")):
+        logits = torch.randn((b, n, 128, 256), generator=gen, device=dev)
+        rows.append(_pool_row(f"mask_pool_f32{sfx}_b{b}", logits, feats))
+    del feats, logits
+    ns = (4 * 111 * b, 3 * 111 * b, 19 * b, b)
+    rows.append(_upsample_row(dev, gen, ns, f"upsample2_b{b}", bwd=False))
+    rows.append(_upsample_row(dev, gen, ns, f"upsample2_bwd_b{b}", bwd=True))
+    rows.append(_lsa_row(dev, gen, 3 * b, f"lsa_b{b}"))
+    for shape, sfx in (((3 * b, 111, 256, 512), f"_b{b}"), ((b, 100, 256, 512), f"_n100_b{b}")):
+        rows += mask_loss_rows(dev, gen, shape, sfx)
+    return rows
+
+
+def _upsample_row(dev, gen, ns, name: str, bwd: bool) -> dict:
+    """K2 (x2 of (n, 128, 256)) or K2b (its (n, 256, 512) gradient) for each
+    n of ``ns``, bit-equal to the plain version; timed at the first n."""
+    import torch
+
+    from torch.nn import functional as F
+
+    from polyphonicformer_torch.ops.cuda import upsample2
+
+    err, timed = 0.0, None
+    for n in ns:
+        if bwd:
+            x = torch.randn((n, 256, 512), generator=gen, device=dev)
+            fns = (lambda x=x: upsample2._upsample_int_bwd_cuda(x, 2, 2),
+                   lambda x=x: upsample2.upsample_int_bwd_plain(x, 2, 2),
+                   lambda x=x, n=n: torch.ops.aten.upsample_bilinear2d_backward(
+                       x[:, None], [256, 512], [n, 1, 128, 256], False, 2.0, 2.0))
+        else:
+            x = torch.randn((n, 128, 256), generator=gen, device=dev)
+            fns = (lambda x=x: upsample2.upsample_int(x, 2),
+                   lambda x=x: upsample2.upsample_int_plain(x, 2, 2),
+                   lambda x=x: F.interpolate(x[:, None], scale_factor=2, mode="bilinear",
+                                             align_corners=False))
+        got = fns[0]()
+        torch.cuda.synchronize()
+        err = max(err, _exact(f"{name} n={n}", got, fns[1]()))
+        if timed is None:
+            timed = (x, got, fns)
+    x, got, (kernel, plain, library) = timed
+    return dict(
+        name=name, kernel="upsample2_bwd" if bwd else "upsample2", route="cuda",
+        source="polyphonicformer_torch/csrc/upsample.cu",
+        replaces=f"polyphonicformer_tpu/ops/pallas/upsample2.py:{172 if bwd else 154}",
+        max_abs_err=err, ms=_time_ms(kernel), plain_ms=_time_ms(plain),
+        library_ms=_time_ms(library),
+        shape=f"{tuple(x.shape)} f32 x2{' gradient' if bwd else ''}, also n in {list(ns[1:])}",
+        **_bound(_nbytes(x, got)))
+
+
+def _lsa_row(dev, gen, problems: int, name: str) -> dict:
+    """K5 on ``problems`` seeded (64 GT x 100 predictions) problems, 12-40
+    valid rows each, some invalid rows between valid ones; raw costs,
+    handed over as the assignment hands them: a transposed view of
+    (problems, 100, 64).  Equal assignments to the plain solver and on a
+    second launch; its latency bound is the longest problem's Dijkstra
+    steps x one warp-wide argmin step (tools/kernel_probe.py)."""
+    import torch
+
+    from polyphonicformer_torch.ops.cuda import lsa
+    from polyphonicformer_torch.ops.hungarian import match_gt_to_preds_batched
+    from polyphonicformer_torch.tools import kernel_probe
+
+    costs = torch.randn((problems, 64, 100), generator=gen, device=dev) * 2
+    counts = torch.randint(12, 41, (problems,), generator=gen, device=dev)
+    valid = torch.arange(64, device=dev)[None] < counts[:, None]
+    holes = torch.rand((problems, 64), generator=gen, device=dev) < 0.15
+    valid = valid & ~(holes & (torch.arange(64, device=dev) < 10))
+    raw = costs.transpose(1, 2).contiguous().transpose(1, 2)
+    got = match_gt_to_preds_batched(raw, valid)
+    torch.cuda.synchronize()
+    steps = []
+    want = lsa.solve_lsa_plain(raw.cpu(), valid.cpu(), steps)
+    _check(name, torch.equal(got.cpu(), want), "assignments differ from the plain solver")
+    _check(name, torch.equal(lsa.solve_lsa(raw, valid), got), "two launches differ")
+    step_us = kernel_probe.warp_step_us(dev, problems, 100)
+    ms = _time_ms(lambda: lsa.solve_lsa(raw, valid))
+    return dict(
+        name=name, kernel="lsa", route="cuda", source="polyphonicformer_torch/csrc/lsa.cu",
+        replaces="polyphonicformer_tpu/ops/pallas/lsa.py:133", max_abs_err=0.0, ms=ms,
+        plain_ms=_time_ms(lambda: lsa.solve_lsa_plain(raw, valid), reps=3),
+        library_ms=None, shape=f"{problems} problems (64, 100) f32",
+        **_bound(_nbytes(raw, valid, got)),
+        dijkstra_steps_longest=max(steps), warp_argmin_step_us=step_us,
+        latency_bound_us=max(steps) * step_us,
+        latency_bound_share=max(steps) * step_us / (ms * 1e3))
 
 
 def mask_loss_rows(dev, gen, shape, sfx: str) -> list[dict]:
@@ -590,7 +652,8 @@ def main() -> int:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    rows = check_kernels(dev, gen) + check_train_kernels(dev, gen) + check_swin_kernels(dev, gen)
+    rows = (check_kernels(dev, gen) + check_train_kernels(dev, gen)
+            + check_train_cli_kernels(dev, gen) + check_swin_kernels(dev, gen))
     print(f"[3 grad] K7/K8 gradients on the card against the plain versions' autograd: "
           f"{json.dumps(check_window_grads(dev, gen))}", flush=True)
     for r in rows:
@@ -1142,14 +1205,21 @@ VIDEO_RTOL = 1e-4  # the small video step on the card against f64: losses, grad_
 VIDEO_HW = (1024, 2048)  # phase 7's image size
 
 
-def check_video_train_reference(dev) -> dict:
-    """One debug_tiny_video step (2 frames, 64x128) on the same weights and
-    batch three ways: on the card in f32 (kernels), on the CPU in f32 and
-    on the CPU in f64, the reference (parameters, images and activations in
+def check_video_train_reference(dev, batch: int = 1, against: str = "f64") -> dict:
+    """One debug_tiny_video step (2 frames, 64x128, ``batch`` clips) on the
+    same weights and batch three ways: on the card in f32 (kernels), on the
+    CPU in f32 and on the CPU in f64 (parameters, images and activations in
     f64 except where the model casts to f32).  Checks: the card step
     launches exactly PER_STEP; assignments equal; every loss and the
-    grad_norm within VIDEO_RTOL of the f64 step.  The f32 CPU step's
-    distance from f64 is reported beside it."""
+    grad_norm within VIDEO_RTOL of the run ``against``: the f64 step, or
+    ``"card_plain"``, a fourth run, the card's f32 step with the plain
+    versions of K1, K2, K2b, K5, K6 and K6b in their place.  Phase 9 holds
+    its batch-2 step to the plain route: at batch 2 both card steps lie
+    ~3e-4 from f64 in stage 2's losses, the plain route as far as the
+    kernels, so that distance is the card's f32 arithmetic outside the
+    kernels (stage 2 reads a hard mask of stage 1's logits, which f32
+    rounding can move across the threshold).  Every run's distance from
+    f64 is reported."""
     import torch
 
     from polyphonicformer_torch.configs import preset
@@ -1168,19 +1238,29 @@ def check_video_train_reference(dev) -> dict:
         state.model.to(dtype)
         for st in opt.adamw.state.values():
             st["exp_avg"], st["exp_avg_sq"] = st["exp_avg"].to(dtype), st["exp_avg_sq"].to(dtype)
-        batch = synthetic_batch(cfg.model, 1, (64, 128), two_frame=True, seed=0,
+        clips = synthetic_batch(cfg.model, batch, (64, 128), two_frame=True, seed=0,
                                 max_instances=6, device=device)
-        batch = batch._replace(image=batch.image.to(dtype), ref_image=batch.ref_image.to(dtype))
+        clips = clips._replace(image=clips.image.to(dtype), ref_image=clips.ref_image.to(dtype))
         with torch.no_grad():
-            asg = losses.assign(cfg.model, state.model(batch.image), batch.gt)
+            asg = losses.assign(cfg.model, state.model(clips.image), clips.gt)
         for k in kernels.values():
             k.launches = 0
-        _, metrics = make_train_step(state.model, cfg, opt, video=True)(state, batch)
+        _, metrics = make_train_step(state.model, cfg, opt, video=True)(state, clips)
         launches = {name: k.launches for name, k in kernels.items()}
         return [a.gt2pred.cpu() for a in asg.assigns], {k: float(v) for k, v in metrics.items()}, \
             launches
 
     runs = {"f64": step("cpu", torch.float64), "cpu_f32": step("cpu"), "card": step(dev)}
+    if against == "card_plain":
+        route = _plain_route()
+        real = [getattr(mod, name) for mod, name, _ in route]
+        for mod, name, plain in route:
+            setattr(mod, name, plain)
+        try:
+            runs["card_plain"] = step(dev)
+        finally:
+            for (mod, name, _), fn in zip(route, real):
+                setattr(mod, name, fn)
     _check("video reference launches",
            all(runs["card"][2][k] == PER_STEP.get(k, 0) for k in kernels),
            f"{runs['card'][2]}")
@@ -1190,15 +1270,33 @@ def check_video_train_reference(dev) -> dict:
         "an f32 step's assignments differ from the f64 step's")
     err = {key: {k: abs(run[1][k] - v) / max(abs(v), 1e-6) for k, v in ref_metrics.items()}
            for key, run in runs.items() if key != "f64"}
-    for k, v in err["card"].items():
+    held = runs[against][1]
+    held_err = {k: abs(runs["card"][1][k] - v) / max(abs(v), 1e-6) for k, v in held.items()}
+    for k, v in held_err.items():
         _check(f"video reference {k}", v <= VIDEO_RTOL,
-               f"{runs['card'][1][k]} on the card, {ref_metrics[k]} in f64")
-    return {"tolerance": VIDEO_RTOL,
+               f"{runs['card'][1][k]} on the card, {held[k]} in the {against} run")
+    return {"tolerance": VIDEO_RTOL, "batch": batch, "held_to": against,
+            "max_metric_rel_err_to_held": max(held_err.values()),
             "max_metric_rel_err_to_f64": {key: max(e.values()) for key, e in err.items()},
             "worst_metric": {key: max(e, key=e.get) for key, e in err.items()},
             "grad_norm": {key: run[1]["grad_norm"] for key, run in runs.items()},
             "loss_track": {key: run[1]["loss_track"] for key, run in runs.items()},
             "loss_track_aux": {key: run[1]["loss_track_aux"] for key, run in runs.items()}}
+
+
+def _plain_route() -> list:
+    """(module, function, plain version) of each launch function of the
+    train step's kernels K1, K2, K2b, K5, K6 and K6b: set in place, the
+    card runs the plain versions (K5's on the CPU)."""
+    from polyphonicformer_torch.ops.cuda import lsa, mask_loss, mask_pool, upsample2
+
+    return [(mask_pool, "_mask_pool_cuda", mask_pool.mask_pool_plain),
+            (upsample2, "_upsample_int_cuda", upsample2.upsample_int_plain),
+            (upsample2, "_upsample_int_bwd_cuda", upsample2.upsample_int_bwd_plain),
+            (lsa, "_solve_lsa_cuda",
+             lambda c, v: lsa.solve_lsa_plain(c.cpu(), v.cpu()).to(c.device)),
+            (mask_loss, "_stats_cuda", mask_loss.mask_loss_stats_plain),
+            (mask_loss, "_grad_cuda", mask_loss.mask_loss_grad_plain)]
 
 
 def window_attn_backward_ms(dev) -> dict:
@@ -1656,6 +1754,9 @@ TRAIN_STEPS, RESUME_STEPS, PROFILE_STEPS = 12, 14, 24  # --max-steps of the thre
 PROFILE_AFTER = 5  # steps of the profiled run before its trace starts
 TRAIN_LOG_INTERVAL = 4
 LOADER_BATCHES = 16  # batches of the loader alone
+# the loader alone at the CLI's 8 workers and at fewer: where its rate falls
+# below the step's
+LOADER_WORKERS = (8, 4, 2)
 PREP_CLIPS = 4  # 2-frame clips whose preparation is timed in one process
 # the eval hook's f32 image step a frame: K1 in the rpn head and twice a
 # stage, the three x2 upsamples and the x4 dense depth, K4; the f32 fusion
@@ -1671,58 +1772,61 @@ def _train_dir() -> str:
 
 
 def _train_prep_ms(ds, cfg) -> dict:
-    """Mean ms of one 2-frame sample's preparation in this process, by
-    stage: decode (both frames' PNGs and segments), resize, crop and flip
-    (with the shared-id check), GT prep (pad, x4 downsample, static
-    shapes); the stages of ``TrainPipeline`` with its draws."""
+    """Mean ms a 2-frame sample of the loader's own ``make_sample`` in this
+    process, over PREP_CLIPS accepted clips, split by timing its stages in
+    place: decode (``load_frame``, the frames' PNGs and segments), the image
+    resize (``resize_linear_u8``, native), the mask and depth resizes
+    (``resize_nearest``, numpy gathers), GT prep (``frame_to_sample``) and
+    the rest (flip, crop, the shared-id check, the draws).  The work of
+    rejected clips is counted in the accepted ones'."""
     import random
 
+    from polyphonicformer_torch.data import loader as L
     from polyphonicformer_torch.data import pipeline as P
 
-    dc, mc = cfg.data, cfg.model
-    rng = random.Random(0)
-    times = {"decode": [], "resize": [], "crop_flip": [], "gt_prep": []}
-    rejected = 0
-    while len(times["gt_prep"]) < PREP_CLIPS:
-        pair = ds.get_pair(rng.randrange(len(ds)), rng)
-        if pair is None:
-            continue
+    spent = {"decode": 0.0, "resize_image": 0.0, "resize_nearest": 0.0, "gt_prep": 0.0}
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        return run
+
+    stages = {"resize_image": "resize_linear_u8", "resize_nearest": "resize_nearest",
+              "gt_prep": "frame_to_sample"}
+    real = {name: getattr(P, name) for name in stages.values()}
+    for key, name in stages.items():
+        setattr(P, name, timed(key, real[name]))
+    ds.load_frame = timed("decode", ds.load_frame)  # an instance attribute, deleted below
+    rng, pipeline = random.Random(0), P.TrainPipeline(cfg.data, cfg.model)
+    try:
         t0 = time.perf_counter()
-        frames = [ds.load_frame(info) for info in pair]
-        t1 = time.perf_counter()
-        ratio = rng.uniform(*dc.ratio_range)
-        frames = [P.resize_frame(f, ratio, dc.max_depth) for f in frames]
-        t2 = time.perf_counter()
-        if rng.random() < dc.flip_ratio:
-            frames = [P.flip_frame(f) for f in frames]
-        h, w = frames[0]["img"].shape[:2]
-        (ch, cw), pad = dc.img_size, P.padded_hw(dc)
-        y0, x0 = rng.randint(0, max(h - ch, 0)), rng.randint(0, max(w - cw, 0))
-        cropped = [P.crop_frame(f, y0, x0, ch, cw) for f in frames]
-        t3 = time.perf_counter()
-        times["decode"].append((t1 - t0) * 1e3)
-        times["resize"].append((t2 - t1) * 1e3)
-        times["crop_flip"].append((t3 - t2) * 1e3)
-        if any(c is None for c in cropped):
-            rejected += 1
-            continue
-        [P.frame_to_sample(c, mc, pad) for c in cropped]
-        times["gt_prep"].append((time.perf_counter() - t3) * 1e3)
-    out = {k: statistics.mean(v) for k, v in times.items()}
-    out["sample"] = sum(out.values())
-    out["rejected_clips"] = rejected
+        for _ in range(PREP_CLIPS):
+            L.make_sample(ds, pipeline, True, rng)
+        total = time.perf_counter() - t0
+    finally:
+        for name, fn in real.items():
+            setattr(P, name, fn)
+        del ds.load_frame
+    out = {k: v * 1e3 / PREP_CLIPS for k, v in spent.items()}
+    out["rest"] = total * 1e3 / PREP_CLIPS - sum(out.values())
+    out["sample"] = total * 1e3 / PREP_CLIPS
     return out
 
 
-def _train_loader_rate(ds, cfg, dev) -> dict:
-    """MPTrainLoader alone over the split: LOADER_BATCHES batches, the
-    steady samples/s without the first round of workers (its samples and
-    the time up to its last), and the seconds to the first batch."""
+def _train_loader_rate(ds, cfg, dev, workers: int) -> dict:
+    """MPTrainLoader alone over the split with ``workers`` processes:
+    LOADER_BATCHES batches, the steady samples/s without the first round of
+    workers (its samples and the time up to its last), and the seconds to
+    the first batch."""
     import torch
 
     from polyphonicformer_torch.data.mp_loader import MPTrainLoader
 
-    loader = MPTrainLoader(ds, cfg.data, cfg.model, seed=0, device=dev)
+    loader = MPTrainLoader(ds, cfg.data, cfg.model, seed=0, num_workers=workers, device=dev)
     arrivals = []
     t0 = time.perf_counter()
     it = iter(loader)
@@ -1862,7 +1966,10 @@ def run_train_cli(dev):
         info = {"preset": "video_r50_1x", "hw": [h, w], "batch": TRAIN_BATCH,
                 "train_frames": len(ds), "val_frames": TRAIN_VAL_FRAMES, "png_filter": "Paeth",
                 "split_write_s": write_s,
-                "prep_ms": _train_prep_ms(ds, cfg), "loader": _train_loader_rate(ds, cfg, dev)}
+                # the CLI's batch through every kernel of its step, small
+                "small_reference": check_video_train_reference(dev, TRAIN_BATCH, "card_plain"),
+                "prep_ms": _train_prep_ms(ds, cfg),
+                "loader": [_train_loader_rate(ds, cfg, dev, n) for n in LOADER_WORKERS]}
         run_dir = os.path.join(work, "run")
         common = ["--preset", "video_r50_1x", "--data-root", root, "--work-dir", run_dir,
                   "--load-from", ckpt, "--loader", "process", "--set", *sets]

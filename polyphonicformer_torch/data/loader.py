@@ -157,7 +157,7 @@ class TrainLoader:
     the consumer has waited for samples."""
 
     def __init__(self, dataset, data_cfg, model_cfg, seed: int = 0,
-                 num_workers: Optional[int] = None, prefetch: int = 4, device="cuda"):
+                 num_workers: Optional[int] = None, device="cuda"):
         self.ds = dataset
         self.dc = data_cfg
         self.mc = model_cfg
@@ -166,7 +166,7 @@ class TrainLoader:
         self.num_workers = num_workers or data_cfg.num_workers
         self.seed = seed
         self.device = device
-        self._queue: "queue.Queue" = queue.Queue(maxsize=prefetch)
+        self._queue: "queue.Queue" = queue.Queue(maxsize=4)
         self._stop = threading.Event()
         self._threads: List[threading.Thread] = []
         self._error: Optional[BaseException] = None

@@ -146,14 +146,14 @@ class MPTrainLoader:
     the consumer has waited for ready slots."""
 
     def __init__(self, dataset, data_cfg, model_cfg, seed: int = 0,
-                 num_workers: Optional[int] = None, prefetch: int = 8, device="cuda"):
+                 num_workers: Optional[int] = None, device="cuda"):
         self.ds = dataset
         self.dc = data_cfg
         self.mc = model_cfg
         self.two_frame = bool(data_cfg.ref_seq_index)
         self.num_workers = max(1, num_workers or data_cfg.num_workers)
         self.specs = sample_field_specs(data_cfg, model_cfg, self.two_frame)
-        self.slots = max(prefetch, 2 * self.num_workers)
+        self.slots = max(8, 2 * self.num_workers)
         self.seed = seed
         self.device = device
         self.sample_wait_s = 0.0

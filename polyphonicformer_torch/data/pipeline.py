@@ -29,7 +29,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from .resize import downsample_linear_x4, resize_linear_u8, resize_nearest, resize_nearest_u8
+from .resize import downsample_linear_x4, resize_linear_u8, resize_nearest
 
 
 def resize_frame(frame: Dict, ratio: float, max_depth: float = 80.0) -> Dict:
@@ -38,7 +38,7 @@ def resize_frame(frame: Dict, ratio: float, max_depth: float = 80.0) -> Dict:
     out = dict(frame)
     out["img"] = resize_linear_u8(frame["img"], nh, nw)
     if frame["masks"].shape[0] > 0:
-        out["masks"] = resize_nearest_u8(frame["masks"], nh, nw)
+        out["masks"] = resize_nearest(frame["masks"], nh, nw)
     else:
         out["masks"] = np.zeros((0, nh, nw), np.uint8)
     if frame.get("depth") is not None:

@@ -15,8 +15,7 @@ cv2 (``polyphonicformer_tpu/data/pipeline.py`` calls ``cv2.resize`` at
   :func:`resize_linear_u8_plain` is the numpy version the tests hold it to.
 - :func:`resize_nearest`: ``INTER_NEAREST`` on the uint8 masks and f32
   depth, a gather of source index ``min(floor(d * (1 / (dsize / ssize))),
-  ssize - 1)`` on each axis; :func:`resize_nearest_u8` gathers a uint8
-  mask stack in the native library (``native/resize_nearest.cpp``).
+  ssize - 1)`` on each axis, as two ``np.take``.
 - :func:`downsample_linear_x4`: ``INTER_LINEAR`` on f32 masks from the
   padded size to stride 4.  At a factor of exactly 4 every output pixel
   lies midway between source pixels 4i+1 and 4i+2 on both axes; cv2
@@ -104,15 +103,6 @@ def resize_nearest(x: np.ndarray, nh: int, nw: int) -> np.ndarray:
     h, w = x.shape[-2:]
     rows = np.take(x, nearest_index(h, nh), axis=-2)
     return np.take(rows, nearest_index(w, nw), axis=-1)
-
-
-def resize_nearest_u8(masks: np.ndarray, nh: int, nw: int) -> np.ndarray:
-    """:func:`resize_nearest` of a (N, h, w) uint8 stack in the native host
-    library."""
-    from ..ops import native
-
-    h, w = masks.shape[-2:]
-    return native.resize_nearest_u8(masks, nearest_index(h, nh), nearest_index(w, nw))
 
 
 def downsample_linear_x4(m: np.ndarray, oh: int, ow: int) -> np.ndarray:

@@ -110,18 +110,19 @@ def evaluate_frames(model_cfg, data_cfg, model, ds, frames,
 
 
 def make_eval_hook(cfg, model_fn: Callable, max_images: Optional[int] = 50,
-                   split: str = "val", sharded: bool = False, bf16: bool = False):
-    """``hook(step) -> dict`` of :func:`evaluate_frames` on ``model_fn()``
-    over the first ``max_images`` frames of ``split`` (None or 0: all of
-    them; reference EvalHook, mmdet/apis/train.py:183-204), or None, with
-    the reason printed, when the split is absent or empty."""
+                   sharded: bool = False):
+    """``hook(step) -> dict`` of :func:`evaluate_frames` (f32) on
+    ``model_fn()`` over the first ``max_images`` frames of the val split
+    (None or 0: all of them; reference EvalHook,
+    mmdet/apis/train.py:183-204), or None, with the reason printed, when
+    the split is absent or empty."""
     from ..data.cityscapes_dvps import CityscapesDVPSDataset
 
     if sharded:
         raise NotImplementedError("make_eval_hook(sharded=True): the port's distributed "
                                   "evaluation is ROADMAP item 1.6")
     try:
-        ds = CityscapesDVPSDataset(cfg.data.data_root, split=split, ref_sample_mode="img",
+        ds = CityscapesDVPSDataset(cfg.data.data_root, split="val", ref_sample_mode="img",
                                    with_depth=True)
     except FileNotFoundError as e:  # val split not on disk
         print(f"eval hook disabled ({e})")
@@ -132,7 +133,7 @@ def make_eval_hook(cfg, model_fn: Callable, max_images: Optional[int] = 50,
         return None
 
     def hook(step: int) -> Dict[str, float]:
-        metrics = evaluate_frames(cfg.model, cfg.data, model_fn(), ds, frames, bf16=bf16)
+        metrics = evaluate_frames(cfg.model, cfg.data, model_fn(), ds, frames)
         flat = {k: v for k, v in metrics.items() if isinstance(v, float)}
         summary = " ".join(f"{k}={v:.4f}" for k, v in sorted(flat.items())
                            if k in ("pq@inf", "pq_thing@inf", "pq_stuff@inf", "depth_abs_rel"))

@@ -1,6 +1,6 @@
 """The port's native host library: the VPQ statistics core (a copy of the
 JAX package's ``native/vpq_core.cpp``), the PNG scanline unfilter and
-cv2's fixed-point bilinear and nearest resizes of uint8 images, all in
+cv2's fixed-point bilinear resize of uint8 images, all in
 ``polyphonicformer_torch/native/``.
 
 The sources compile with one ``g++ -O3`` the first time a function here is
@@ -11,7 +11,7 @@ build at once (test workers, decode workers) never load a partial file.
 There is no fallback: a library that does not build or load raises.  The
 Python VPQ of ``evalutils/vpq.py`` is the plain version the tests hold this
 one to, ``data/png.py::unfilter_plain`` the unfilter's and
-``data/resize.py``'s numpy versions the resizes'.  Importing this
+``data/resize.py::resize_linear_u8_plain`` the resize's.  Importing this
 module builds nothing and imports no ``torch``.
 """
 from __future__ import annotations
@@ -78,8 +78,6 @@ def load() -> ctypes.CDLL:
         lib.png_unfilter.argtypes = [_P, _P, _I64, _I64, _I32]
         lib.resize_linear_u8.restype = _I64
         lib.resize_linear_u8.argtypes = [_P, _I64, _I64, _I64, _P, _I64, _I64, _P, _P, _P, _P]
-        lib.resize_nearest_u8.restype = _I64
-        lib.resize_nearest_u8.argtypes = [_P, _I64, _I64, _I64, _P, _I64, _I64, _P, _P]
         _lib = lib
         return lib
 
@@ -141,19 +139,3 @@ def resize_linear_u8(img: np.ndarray, dh: int, dw: int, xofs: np.ndarray, xa: np
         raise ValueError(f"resize_linear_u8 failed rc={rc}")
     return out
 
-
-def resize_nearest_u8(x: np.ndarray, yidx: np.ndarray, xidx: np.ndarray) -> np.ndarray:
-    """cv2's INTER_NEAREST of a (n, h, w) uint8 stack: output (y, x) of each
-    plane is its source (yidx[y], xidx[x])."""
-    if x.dtype != np.uint8 or x.ndim != 3:
-        raise ValueError(f"resize_nearest_u8: need (n, h, w) uint8, got {x.dtype} {x.shape}")
-    x = np.ascontiguousarray(x)
-    yidx = np.ascontiguousarray(yidx, np.int64)
-    xidx = np.ascontiguousarray(xidx, np.int64)
-    n, h, w = x.shape
-    out = np.empty((n, yidx.size, xidx.size), np.uint8)
-    rc = load().resize_nearest_u8(_ptr(x), n, h, w, _ptr(out), yidx.size, xidx.size,
-                                  _ptr(yidx), _ptr(xidx))
-    if rc != 0:
-        raise ValueError(f"resize_nearest_u8: index out of range rc={rc}")
-    return out

@@ -27,8 +27,8 @@ class MetricWriter:
     def due(self, step: int) -> bool:
         return step % self.log_interval == 0
 
-    def write(self, step: int, metrics: Dict, force: bool = False) -> None:
-        if not (self.due(step) or force):
+    def write(self, step: int, metrics: Dict) -> None:
+        if not self.due(step):
             return
         now = time.time()
         rec = {"step": int(step), "time": round(now - self._t0, 1),

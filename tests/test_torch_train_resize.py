@@ -1,14 +1,14 @@
 """The port's emulation of cv2's train-pipeline resizes
-(``polyphonicformer_torch/data/resize.py`` and its native bodies
-``native/resize_linear.cpp``, ``native/resize_nearest.cpp``) against real
+(``polyphonicformer_torch/data/resize.py`` and its native body
+``native/resize_linear.cpp``) against real
 cv2, which the CPU tests have and the port does not import.
 
 Tolerance: none.  Every case is bit-equal to ``cv2.resize``: the uint8
 bilinear (numpy and C++) at 24 seeded (size, ratio) pairs, 1024x2048
 among them, plus odd, one-row and one-column sizes and ratio 1; the nearest
-resize of uint8 mask stacks (numpy and C++) and of f32 depth; the x4 f32
-downsample on 0/1 masks and on arbitrary f32 values.  The C++ bodies equal
-the numpy versions, and a downsample factor other than 4 raises.
+resize of uint8 mask stacks and of f32 depth; the x4 f32 downsample on
+0/1 masks and on arbitrary f32 values.  The C++ bilinear equals the numpy
+version, and a downsample factor other than 4 raises.
 """
 import cv2
 import numpy as np
@@ -56,7 +56,6 @@ def test_nearest_matches_cv2(h, w, ratio):
     masks = (rng.rand(3, h, w) > 0.5).astype(np.uint8)
     want = np.stack([cv2.resize(m, (nw, nh), interpolation=cv2.INTER_NEAREST) for m in masks])
     np.testing.assert_array_equal(resize.resize_nearest(masks, nh, nw), want)
-    np.testing.assert_array_equal(resize.resize_nearest_u8(masks, nh, nw), want)
     depth = (rng.rand(h, w) * 80).astype(np.float32)
     got = resize.resize_nearest(depth, nh, nw)
     assert got.dtype == np.float32
@@ -82,9 +81,6 @@ def test_native_matches_plain():
         img = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
         np.testing.assert_array_equal(resize.resize_linear_u8(img, nh, nw),
                                       resize.resize_linear_u8_plain(img, nh, nw))
-        masks = rng.randint(0, 2, (2, h, w)).astype(np.uint8)
-        np.testing.assert_array_equal(resize.resize_nearest_u8(masks, nh, nw),
-                                      resize.resize_nearest(masks, nh, nw))
 
 
 def test_other_factor_raises():
