@@ -50,8 +50,24 @@ its steps), with a debug-size batch-2 video step on the card against the
 same step on the card's plain route (its distance from the CPU's f64 step
 reported), the loader alone at 8, 4 and 2 workers, one sample's
 preparation by stage (``make_sample`` with its stages timed in place), the
-checkpoint save and restore times and launches a step.  Phases 4 to 9
-each count the kernel launches of their own run.  Any failed phase raises,
+checkpoint save and restore times and launches a step; (10) the model
+options: the checkpoint converter (phase 8's seeded weights as an
+mmcv-style ``.pth``, ``python -m polyphonicformer_torch.tools.convert_torch_ckpt``,
+its variables bit-equal to phase 8's and ``tools/eval_video.py`` from them
+over phase 8's first clip, its dumps bit-equal to phase 8's), SemKITTI-DVPS
+(a 376x1241 split in its layout, ``tools/train.py --preset
+video_r50_semkitti_1x`` with the process loader at batch 2 for 12 steps
+with the eval hook, ``tools/eval_video.py`` over its val split with DVPQ
+and STQ, a debug-width ``semantic_kitti`` batch-2 step from the train
+loader on the card against the card's plain route), ``image_r50_2x`` on
+``stdc1446`` with the ASPP head (3 train steps at 1024x2048 and a
+debug-width step against the card's plain route and, with cuDNN off,
+against the CPU's f64 step), an 8-frame 1024x2048 bf16
+``video_r50_1x`` clip on ``stdc813``, and the flow-aligned FPN
+(``UperNetAlignHead`` v1 and v2 on the card against the CPU, then at the
+R50 FPN shapes of a 1024x2048 image).  Phase 3 also holds the kernels at
+phase 10's SemKITTI training and evaluation shapes and the ASPP head's.
+Phases 4 to 10 each count the kernel launches of their own run.  Any failed phase raises,
 so the exit code is not 0.  The last lines are the
 card, a JSON object of per-kernel results and the JSON result line
 ``{"ok": true, "device": {...}}``.
@@ -202,7 +218,7 @@ def check_kernels(dev, gen) -> list[dict]:
 
     from torch.nn import functional as F
 
-    from polyphonicformer_torch.ops.cuda import map_render, phase_fusion, upsample2
+    from polyphonicformer_torch.ops.cuda import upsample2
 
     rows = []
 
@@ -241,18 +257,31 @@ def check_kernels(dev, gen) -> list[dict]:
             shape=f"{shape} f32 x{f}", **_bound(_nbytes(x, got))))
         del got
 
-    # K3 phase_fusion: 111 bf16 candidates at stride 4 -> 1024x2048, f32
-    # scores, pruned to 64 full rows and not
-    probs = torch.sigmoid(torch.randn((111, 256, 512), generator=gen, device=dev) * 3)
+    # K3 phase_fusion: 111 bf16 candidates at stride 4 -> 1024x2048; K4
+    # map_render at 1024x2048
+    rows.append(_fusion_row(dev, gen, 256, 512, "phase_fusion"))
+    rows.append(_render_row(dev, gen, 1024, 2048, "map_render"))
+    return rows
+
+
+def _fusion_row(dev, gen, hs: int, ws: int, name: str) -> dict:
+    """K3 on 111 bf16 candidates at stride 4 (hs, ws) -> x4, f32 scores,
+    pruned to 64 full rows and not: pixels, marginals and areas bit-equal,
+    depth within 1e-4 + 1e-5|d|; timed pruned."""
+    import torch
+
+    from polyphonicformer_torch.ops.cuda import phase_fusion
+
+    probs = torch.sigmoid(torch.randn((111, hs, ws), generator=gen, device=dev) * 3)
     probs = probs.to(torch.bfloat16)
     scores = torch.rand((111,), generator=gen, device=dev)
-    depth = (torch.rand((111, 256, 512), generator=gen, device=dev) * 70 + 1).to(torch.bfloat16)
+    depth = (torch.rand((111, hs, ws), generator=gen, device=dev) * 70 + 1).to(torch.bfloat16)
     err = 0.0
     for n_full in (64, None):
         got = phase_fusion.phase_fusion(probs, scores, depth, 4, 4, n_full=n_full)
         torch.cuda.synchronize()
         want = phase_fusion.phase_fusion_plain(probs, scores, depth, 4, 4, n_full=n_full)
-        tag = f"phase_fusion n_full={n_full}"
+        tag = f"{name} n_full={n_full}"
         _exact(tag + " pix", got[0], want[0])
         for i, part in ((2, "row_marg"), (3, "col_marg"), (4, "oarea")):
             _exact(f"{tag} {part}", got[i], want[i])
@@ -263,19 +292,28 @@ def check_kernels(dev, gen) -> list[dict]:
     outs = phase_fusion.phase_fusion(probs, scores, depth, 4, 4, n_full=64)
     kpad, nf, _ = phase_fusion._rows(probs.shape[0], 64)
     ops = outs[0].numel() * (nf * K3_INSTR_FULL + (kpad - nf) * K3_INSTR_FOLDED)
-    rows.append(dict(
-        name="phase_fusion", route="cuda", source="polyphonicformer_torch/csrc/phase_fusion.cu",
+    return dict(
+        name=name, kernel="phase_fusion", route="cuda",
+        source="polyphonicformer_torch/csrc/phase_fusion.cu",
         replaces="polyphonicformer_tpu/ops/pallas/phase_fusion.py:126", max_abs_err=err,
-        library_ms=None, **_bound(_nbytes(probs, scores, depth, *outs), ops, "f32_issue"),
+        library_ms=None, shape=f"(111, {hs}, {ws}) bf16 x4",
+        **_bound(_nbytes(probs, scores, depth, *outs), ops, "f32_issue"),
         ms=_time_ms(lambda: phase_fusion.phase_fusion(probs, scores, depth, 4, 4, n_full=64)),
         plain_ms=_time_ms(lambda: phase_fusion.phase_fusion_plain(
-            probs, scores, depth, 4, 4, n_full=64), reps=5)))
+            probs, scores, depth, 4, 4, n_full=64), reps=5))
 
-    # K4 map_render: 64 table rows, pix in [0, 64] (64 is the sentinel)
+
+def _render_row(dev, gen, h: int, w: int, name: str) -> dict:
+    """K4 at (h, w): 64 table rows, pix in [0, 64] (64 is the sentinel);
+    the four maps bit-equal."""
+    import torch
+
+    from polyphonicformer_torch.ops.cuda import map_render
+
     k = 64
-    pix = torch.randint(0, k + 1, (1024, 2048), generator=gen, device=dev, dtype=torch.int32)
-    dep = torch.rand((1024, 2048), generator=gen, device=dev) * 80
-    db = torch.rand((1024, 2048), generator=gen, device=dev) * 80
+    pix = torch.randint(0, k + 1, (h, w), generator=gen, device=dev, dtype=torch.int32)
+    dep = torch.rand((h, w), generator=gen, device=dev) * 80
+    db = torch.rand((h, w), generator=gen, device=dev) * 80
     labels = torch.randint(0, 19, (k,), generator=gen, device=dev, dtype=torch.int32)
     seg = torch.randint(0, k + 1, (k,), generator=gen, device=dev, dtype=torch.int32)
     keep = torch.rand((k,), generator=gen, device=dev) > 0.4
@@ -284,16 +322,16 @@ def check_kernels(dev, gen) -> list[dict]:
     got = map_render.render_maps(*args)
     torch.cuda.synchronize()
     want = map_render.render_maps_plain(*args)
-    err = max(_exact(f"map_render {name}", g, w)
-              for name, g, w in zip(("semantic", "panoptic", "depth", "track"), got, want))
-    rows.append(dict(
-        name="map_render", route="cuda", source="polyphonicformer_torch/csrc/map_render.cu",
+    err = max(_exact(f"{name} {part}", g, w_)
+              for part, g, w_ in zip(("semantic", "panoptic", "depth", "track"), got, want))
+    return dict(
+        name=name, kernel="map_render", route="cuda",
+        source="polyphonicformer_torch/csrc/map_render.cu",
         replaces="polyphonicformer_tpu/ops/pallas/map_render.py:53", max_abs_err=err,
-        library_ms=None,
+        library_ms=None, shape=f"({h}, {w})",
         **_bound(_nbytes(*(a for a in args if isinstance(a, torch.Tensor)), *got)),
         ms=_time_ms(lambda: map_render.render_maps(*args)),
-        plain_ms=_time_ms(lambda: map_render.render_maps_plain(*args))))
-    return rows
+        plain_ms=_time_ms(lambda: map_render.render_maps_plain(*args)))
 
 
 def check_swin_kernels(dev, gen) -> list[dict]:
@@ -478,25 +516,65 @@ def check_train_cli_kernels(dev, gen) -> list[dict]:
     return rows
 
 
-def _upsample_row(dev, gen, ns, name: str, bwd: bool) -> dict:
-    """K2 (x2 of (n, 128, 256)) or K2b (its (n, 256, 512) gradient) for each
-    n of ``ns``, bit-equal to the plain version; timed at the first n."""
+def check_options_kernels(dev, gen) -> list[dict]:
+    """Phase 3, phase 10's shapes, each at the tolerance of its serving or
+    training row.  SemKITTI-DVPS training (``video_r50_semkitti_1x``, crop
+    384x1248, batch SEMKITTI_BATCH): K1 f32 on (B, 111) and (B, 100) logits
+    of 48x156 over strided NHWC views; K2 and K2b on the batch's x2
+    upsamples of 48x156 maps; K5 on its 3 B problems with 16-24 valid rows
+    (SemKITTI's ~20 things a frame); K6 and K6b on its (3 B, 111) and
+    (B, 100) volumes of 96x312.  SemKITTI-DVPS evaluation, a 376x1241
+    frame padded to 384x1248, bf16: K1 (1, 111), K2 on the stage masks, K3
+    from 96x312 to 384x1248 and K4 at 376x1241.  The ASPP head at
+    1024x2048: K2 and K2b on its 19 maps of 128x256."""
+    import torch
+
+    b = SEMKITTI_BATCH
+    rows = []
+    feats = torch.randn((b, 256, 48, 156), generator=gen, device=dev).permute(0, 2, 3, 1)
+    for n, sfx in ((111, ""), (100, "_n100")):
+        logits = torch.randn((b, n, 48, 156), generator=gen, device=dev)
+        rows.append(_pool_row(f"mask_pool_f32{sfx}_semkitti", logits, feats))
+    ns = (4 * 111 * b, 3 * 111 * b, 19 * b, b)
+    for bwd, name in ((False, "upsample2_semkitti"), (True, "upsample2_bwd_semkitti")):
+        rows.append(_upsample_row(dev, gen, ns, name, bwd=bwd, hw=(48, 156)))
+    rows.append(_lsa_row(dev, gen, 3 * b, "lsa_semkitti", valid_rows=(16, 24)))
+    for shape, sfx in (((3 * b, 111, 96, 312), "_semkitti"), ((b, 100, 96, 312), "_n100_semkitti")):
+        rows += mask_loss_rows(dev, gen, shape, sfx)
+
+    feats = torch.randn((1, 256, 48, 156), generator=gen, device=dev).to(torch.bfloat16)
+    logits = torch.randn((1, 111, 48, 156), generator=gen, device=dev).to(torch.bfloat16)
+    rows.append(_pool_row("mask_pool_semkitti_eval", logits, feats.permute(0, 2, 3, 1)))
+    rows.append(_upsample_row(dev, gen, (111, 1), "upsample2_semkitti_eval", bwd=False,
+                              hw=(48, 156)))
+    rows.append(_fusion_row(dev, gen, 96, 312, "phase_fusion_semkitti"))
+    rows.append(_render_row(dev, gen, 376, 1241, "map_render_semkitti"))
+
+    for bwd, name in ((False, "upsample2_aspp"), (True, "upsample2_bwd_aspp")):
+        rows.append(_upsample_row(dev, gen, (19,), name, bwd=bwd))
+    return rows
+
+
+def _upsample_row(dev, gen, ns, name: str, bwd: bool, hw=(128, 256)) -> dict:
+    """K2 (x2 of (n, h, w)) or K2b (its (n, 2h, 2w) gradient) for each n of
+    ``ns``, bit-equal to the plain version; timed at the first n."""
     import torch
 
     from torch.nn import functional as F
 
     from polyphonicformer_torch.ops.cuda import upsample2
 
+    h, w = hw
     err, timed = 0.0, None
     for n in ns:
         if bwd:
-            x = torch.randn((n, 256, 512), generator=gen, device=dev)
+            x = torch.randn((n, 2 * h, 2 * w), generator=gen, device=dev)
             fns = (lambda x=x: upsample2._upsample_int_bwd_cuda(x, 2, 2),
                    lambda x=x: upsample2.upsample_int_bwd_plain(x, 2, 2),
                    lambda x=x, n=n: torch.ops.aten.upsample_bilinear2d_backward(
-                       x[:, None], [256, 512], [n, 1, 128, 256], False, 2.0, 2.0))
+                       x[:, None], [2 * h, 2 * w], [n, 1, h, w], False, 2.0, 2.0))
         else:
-            x = torch.randn((n, 128, 256), generator=gen, device=dev)
+            x = torch.randn((n, h, w), generator=gen, device=dev)
             fns = (lambda x=x: upsample2.upsample_int(x, 2),
                    lambda x=x: upsample2.upsample_int_plain(x, 2, 2),
                    lambda x=x: F.interpolate(x[:, None], scale_factor=2, mode="bilinear",
@@ -513,13 +591,14 @@ def _upsample_row(dev, gen, ns, name: str, bwd: bool) -> dict:
         replaces=f"polyphonicformer_tpu/ops/pallas/upsample2.py:{172 if bwd else 154}",
         max_abs_err=err, ms=_time_ms(kernel), plain_ms=_time_ms(plain),
         library_ms=_time_ms(library),
-        shape=f"{tuple(x.shape)} f32 x2{' gradient' if bwd else ''}, also n in {list(ns[1:])}",
+        shape=f"{tuple(x.shape)} f32 x2{' gradient' if bwd else ''}"
+              + (f", also n in {list(ns[1:])}" if len(ns) > 1 else ""),
         **_bound(_nbytes(x, got)))
 
 
-def _lsa_row(dev, gen, problems: int, name: str) -> dict:
-    """K5 on ``problems`` seeded (64 GT x 100 predictions) problems, 12-40
-    valid rows each, some invalid rows between valid ones; raw costs,
+def _lsa_row(dev, gen, problems: int, name: str, valid_rows=(12, 40)) -> dict:
+    """K5 on ``problems`` seeded (64 GT x 100 predictions) problems,
+    ``valid_rows`` (12-40) valid rows each, some invalid rows between valid ones; raw costs,
     handed over as the assignment hands them: a transposed view of
     (problems, 100, 64).  Equal assignments to the plain solver and on a
     second launch; its latency bound is the longest problem's Dijkstra
@@ -531,7 +610,8 @@ def _lsa_row(dev, gen, problems: int, name: str) -> dict:
     from polyphonicformer_torch.tools import kernel_probe
 
     costs = torch.randn((problems, 64, 100), generator=gen, device=dev) * 2
-    counts = torch.randint(12, 41, (problems,), generator=gen, device=dev)
+    counts = torch.randint(valid_rows[0], valid_rows[1] + 1, (problems,), generator=gen,
+                           device=dev)
     valid = torch.arange(64, device=dev)[None] < counts[:, None]
     holes = torch.rand((problems, 64), generator=gen, device=dev) < 0.15
     valid = valid & ~(holes & (torch.arange(64, device=dev) < 10))
@@ -548,7 +628,8 @@ def _lsa_row(dev, gen, problems: int, name: str) -> dict:
         name=name, kernel="lsa", route="cuda", source="polyphonicformer_torch/csrc/lsa.cu",
         replaces="polyphonicformer_tpu/ops/pallas/lsa.py:133", max_abs_err=0.0, ms=ms,
         plain_ms=_time_ms(lambda: lsa.solve_lsa_plain(raw, valid), reps=3),
-        library_ms=None, shape=f"{problems} problems (64, 100) f32",
+        library_ms=None, shape=f"{problems} problems (64, 100) f32, "
+                               f"{valid_rows[0]}-{valid_rows[1]} valid rows",
         **_bound(_nbytes(raw, valid, got)),
         dijkstra_steps_longest=max(steps), warp_argmin_step_us=step_us,
         latency_bound_us=max(steps) * step_us,
@@ -618,6 +699,8 @@ def mask_loss_rows(dev, gen, shape, sfx: str) -> list[dict]:
 
 
 def main() -> int:
+    import shutil
+
     import torch
 
     if not torch.cuda.is_available():
@@ -653,7 +736,8 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     rows = (check_kernels(dev, gen) + check_train_kernels(dev, gen)
-            + check_train_cli_kernels(dev, gen) + check_swin_kernels(dev, gen))
+            + check_train_cli_kernels(dev, gen) + check_options_kernels(dev, gen)
+            + check_swin_kernels(dev, gen))
     print(f"[3 grad] K7/K8 gradients on the card against the plain versions' autograd: "
           f"{json.dumps(check_window_grads(dev, gen))}", flush=True)
     for r in rows:
@@ -677,8 +761,12 @@ def main() -> int:
     print(f"[7 video] {json.dumps(video_info)}", flush=True)
     eval_launches, eval_info = run_eval(dev)
     print(f"[8 eval] {json.dumps(eval_info)}", flush=True)
-    train_cli_launches, train_cli_info = run_train_cli(dev)
-    print(f"[9 train_cli] {json.dumps(train_cli_info)}", flush=True)
+    try:
+        train_cli_launches, train_cli_info = run_train_cli(dev)
+        print(f"[9 train_cli] {json.dumps(train_cli_info)}", flush=True)
+        options_launches, _ = run_options(dev)
+    finally:
+        shutil.rmtree(_eval_dir(), ignore_errors=True)
     for r in rows:
         kernel = r.pop("kernel", r["name"])  # rows at several shapes share a kernel
         by_path = {"serve": serve_launches.get(kernel, 0),
@@ -686,7 +774,8 @@ def main() -> int:
                    "swin": swin_launches.get(kernel, 0),
                    "video": video_launches.get(kernel, 0),
                    "eval": eval_launches.get(kernel, 0),
-                   "train_cli": train_cli_launches.get(kernel, 0)}
+                   "train_cli": train_cli_launches.get(kernel, 0),
+                   "options": options_launches.get(kernel, 0)}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         _check(f"launches {r['name']}", r["launches"] > 0, "never launched on a main path")
@@ -812,9 +901,11 @@ def check_small_reference(dev) -> dict:
     return agree
 
 
-def _serve_clip(tag: str, model, cfg, frames, per_frame: dict, dev):
+def _serve_clip(tag: str, model, cfg, frames, per_frame: dict, dev,
+                require_tracks: bool = True):
     """An 8-frame clip through ``make_clip_step`` (bf16), counted and
-    checked; then a warm pass of the clip and the same frames one by one
+    checked (with ``require_tracks``, some detection must reach the
+    tracker); then a warm pass of the clip and the same frames one by one
     through ``make_video_step``, each frame timed with CUDA events."""
     import torch
 
@@ -838,8 +929,9 @@ def _serve_clip(tag: str, model, cfg, frames, per_frame: dict, dev):
     launches = _count_launches(kernels, per_frame, t, tag)
     _check_maps(tag, out, cfg, (t, h, w))
     # new tracklets come only from valid detections that reached tracker_step
-    _check(f"{tag} detections", int(state.num_tracklets) > 0 and bool((out.track_map > 0).any()),
-           "no detection reached the tracker")
+    _check(f"{tag} detections", not require_tracks or (
+        int(state.num_tracklets) > 0 and bool((out.track_map > 0).any())),
+        "no detection reached the tracker")
     peak = torch.cuda.max_memory_allocated()
 
     t0 = time.perf_counter()
@@ -867,14 +959,15 @@ def _serve_clip(tag: str, model, cfg, frames, per_frame: dict, dev):
         "launches": launches}
 
 
-def _serving_model(preset: str, dev):
-    """The preset's model on the card, weights drawn from seed 0."""
+def _serving_model(preset: str, dev, **replacements):
+    """The preset's model (with ``replacements``) on the card, weights drawn
+    from seed 0."""
     import torch
 
     from polyphonicformer_torch.configs import model_preset
     from polyphonicformer_torch.models import build_model
 
-    cfg = model_preset(preset)
+    cfg = model_preset(preset, **replacements)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     model = build_model(cfg, dev, generator=gen)
@@ -1206,29 +1299,46 @@ VIDEO_HW = (1024, 2048)  # phase 7's image size
 
 
 def check_video_train_reference(dev, batch: int = 1, against: str = "f64") -> dict:
-    """One debug_tiny_video step (2 frames, 64x128, ``batch`` clips) on the
-    same weights and batch three ways: on the card in f32 (kernels), on the
-    CPU in f32 and on the CPU in f64 (parameters, images and activations in
-    f64 except where the model casts to f32).  Checks: the card step
-    launches exactly PER_STEP; assignments equal; every loss and the
-    grad_norm within VIDEO_RTOL of the run ``against``: the f64 step, or
-    ``"card_plain"``, a fourth run, the card's f32 step with the plain
-    versions of K1, K2, K2b, K5, K6 and K6b in their place.  Phase 9 holds
-    its batch-2 step to the plain route: at batch 2 both card steps lie
-    ~3e-4 from f64 in stage 2's losses, the plain route as far as the
-    kernels, so that distance is the card's f32 arithmetic outside the
-    kernels (stage 2 reads a hard mask of stage 1's logits, which f32
-    rounding can move across the threshold).  Every run's distance from
-    f64 is reported."""
-    import torch
-
+    """One debug_tiny_video step (2 frames, 64x128, ``batch`` clips of
+    ``synthetic_batch``) through :func:`check_step_reference`."""
     from polyphonicformer_torch.configs import preset
     from polyphonicformer_torch.data.synthetic import synthetic_batch
+
+    cfg = preset("debug_tiny_video")
+    return check_step_reference(
+        dev, cfg, lambda device: synthetic_batch(cfg.model, batch, (64, 128), two_frame=True,
+                                                 seed=0, max_instances=6, device=device),
+        against, video=True)
+
+
+def check_step_reference(dev, cfg, make_batch, against: str = "f64", video: bool = True,
+                         per_step=None, cudnn_witness: bool = False) -> dict:
+    """One train step of the debug-width ``cfg`` on the batch
+    ``make_batch(device)`` (float images) on the same weights three ways:
+    on the card in f32 (kernels), on the CPU in f32 and on the CPU in f64
+    (parameters, images and activations in f64 except where the model
+    casts to f32).  Checks: the card step launches exactly ``per_step``
+    (PER_STEP); assignments equal; every loss and the grad_norm within
+    VIDEO_RTOL of the run ``against``: the f64 step, or ``"card_plain"``, a
+    fourth run, the card's f32 step with the plain versions of K1, K2, K2b,
+    K5, K6 and K6b in their place.  Phase 9 holds its batch-2 step to the
+    plain route: at batch 2 both card steps lie ~3e-4 from f64 in stage
+    2's losses, the plain route as far as the kernels, so that distance is
+    the card's f32 arithmetic outside the kernels (stage 2 reads a hard
+    mask of stage 1's logits, which f32 rounding can move across the
+    threshold).  With ``cudnn_witness`` a fifth run, the card's step with
+    cuDNN off (PyTorch's own convolutions, the kernels in place), is held
+    to the f64 step at VIDEO_RTOL: on STDC the card's step with cuDNN lies
+    ~6e-4 from f64 in grad_norm, its plain route as far, and without cuDNN
+    ~4e-7 (measured on an H100 80GB HBM3), so that distance is cuDNN's f32
+    convolutions.  Every run's distance from f64 is reported."""
+    import torch
+
     from polyphonicformer_torch.models import build_model
     from polyphonicformer_torch.train import losses
     from polyphonicformer_torch.train.step import create_train_state, make_train_step
 
-    cfg = preset("debug_tiny_video")
+    per_step = PER_STEP if per_step is None else per_step
     cpu = build_model(cfg.model, "cpu", generator=torch.Generator().manual_seed(0))
     kernels = _kernels()
 
@@ -1238,14 +1348,15 @@ def check_video_train_reference(dev, batch: int = 1, against: str = "f64") -> di
         state.model.to(dtype)
         for st in opt.adamw.state.values():
             st["exp_avg"], st["exp_avg_sq"] = st["exp_avg"].to(dtype), st["exp_avg_sq"].to(dtype)
-        clips = synthetic_batch(cfg.model, batch, (64, 128), two_frame=True, seed=0,
-                                max_instances=6, device=device)
-        clips = clips._replace(image=clips.image.to(dtype), ref_image=clips.ref_image.to(dtype))
+        clips = make_batch(device)
+        clips = clips._replace(image=clips.image.to(dtype))
+        if video:
+            clips = clips._replace(ref_image=clips.ref_image.to(dtype))
         with torch.no_grad():
             asg = losses.assign(cfg.model, state.model(clips.image), clips.gt)
         for k in kernels.values():
             k.launches = 0
-        _, metrics = make_train_step(state.model, cfg, opt, video=True)(state, clips)
+        _, metrics = make_train_step(state.model, cfg, opt, video=video)(state, clips)
         launches = {name: k.launches for name, k in kernels.items()}
         return [a.gt2pred.cpu() for a in asg.assigns], {k: float(v) for k, v in metrics.items()}, \
             launches
@@ -1261,11 +1372,17 @@ def check_video_train_reference(dev, batch: int = 1, against: str = "f64") -> di
         finally:
             for (mod, name, _), fn in zip(route, real):
                 setattr(mod, name, fn)
-    _check("video reference launches",
-           all(runs["card"][2][k] == PER_STEP.get(k, 0) for k in kernels),
+    if cudnn_witness:
+        torch.backends.cudnn.enabled = False
+        try:
+            runs["card_no_cudnn"] = step(dev)
+        finally:
+            torch.backends.cudnn.enabled = True
+    _check("step reference launches",
+           all(runs["card"][2][k] == per_step.get(k, 0) for k in kernels),
            f"{runs['card'][2]}")
     ref_asg, ref_metrics, _ = runs["f64"]
-    _check("video reference assignments", all(
+    _check("step reference assignments", all(
         torch.equal(a, b) for run in runs.values() for a, b in zip(ref_asg, run[0])),
         "an f32 step's assignments differ from the f64 step's")
     err = {key: {k: abs(run[1][k] - v) / max(abs(v), 1e-6) for k, v in ref_metrics.items()}
@@ -1273,15 +1390,21 @@ def check_video_train_reference(dev, batch: int = 1, against: str = "f64") -> di
     held = runs[against][1]
     held_err = {k: abs(runs["card"][1][k] - v) / max(abs(v), 1e-6) for k, v in held.items()}
     for k, v in held_err.items():
-        _check(f"video reference {k}", v <= VIDEO_RTOL,
+        _check(f"step reference {k}", v <= VIDEO_RTOL,
                f"{runs['card'][1][k]} on the card, {held[k]} in the {against} run")
-    return {"tolerance": VIDEO_RTOL, "batch": batch, "held_to": against,
-            "max_metric_rel_err_to_held": max(held_err.values()),
-            "max_metric_rel_err_to_f64": {key: max(e.values()) for key, e in err.items()},
-            "worst_metric": {key: max(e, key=e.get) for key, e in err.items()},
-            "grad_norm": {key: run[1]["grad_norm"] for key, run in runs.items()},
-            "loss_track": {key: run[1]["loss_track"] for key, run in runs.items()},
-            "loss_track_aux": {key: run[1]["loss_track_aux"] for key, run in runs.items()}}
+    if cudnn_witness:
+        for k, v in err["card_no_cudnn"].items():
+            _check(f"step reference {k} without cuDNN", v <= VIDEO_RTOL,
+                   f"{runs['card_no_cudnn'][1][k]} on the card, {ref_metrics[k]} in f64")
+    out = {"tolerance": VIDEO_RTOL, "batch": int(ref_asg[0].shape[0]),
+           "held_to": against, "max_metric_rel_err_to_held": max(held_err.values()),
+           "max_metric_rel_err_to_f64": {key: max(e.values()) for key, e in err.items()},
+           "worst_metric": {key: max(e, key=e.get) for key, e in err.items()},
+           "grad_norm": {key: run[1]["grad_norm"] for key, run in runs.items()}}
+    for name in ("loss_track", "loss_track_aux", "loss_aspp_semseg"):
+        if name in ref_metrics:
+            out[name] = {key: run[1][name] for key, run in runs.items()}
+    return out
 
 
 def _plain_route() -> list:
@@ -1616,7 +1739,8 @@ def _gt_dumps_match_pngs(eval_dir: str, ds) -> None:
 
 
 def run_eval(dev):
-    """Phase 8: the evaluation CLIs at full width from PNGs on disk."""
+    """Phase 8: the evaluation CLIs at full width from PNGs on disk.  Its
+    directory (``_eval_dir()``) stays for phase 10."""
     import math
     import os
     import pickle
@@ -1714,8 +1838,11 @@ def run_eval(dev):
         _check("demo outputs", len(outs) == 2 and all(
             o.shape == DEMO_HW + (3,) and o.dtype == np.uint8 for o in outs),
             f"{[o.shape for o in outs]}")
-    finally:
+    except BaseException:
         shutil.rmtree(work, ignore_errors=True)
+        raise
+    # the split, the checkpoint and the clip dumps stay for phase 10's
+    # converter check, which removes them
 
     inf, sinf = out["inference"], stream["inference"]
     info.update({
@@ -2098,6 +2225,447 @@ def run_train_cli(dev):
         "launches": {n: main_run["launches"][n] + resume["launches"][n]
                      + profiled["launches"][n] for n in kernels}})
     return info["launches"], info
+
+
+SEMKITTI_HW = (376, 1241)  # phase 10's SemKITTI-DVPS frames, the real size
+SEMKITTI_SEQS, SEMKITTI_FRAMES = 2, 6  # its train split
+SEMKITTI_VAL_SEQS, SEMKITTI_VAL_FRAMES = 2, 4  # its val split (eval hook and eval_video)
+SEMKITTI_BATCH = 2  # video_r50_1x's batch a GPU, as phase 9
+SEMKITTI_STEPS = 12  # the CLI's --max-steps: evaluations and saves at 6 and 12
+SEMKITTI_SMALL_HW, SEMKITTI_SMALL_CROP = (94, 310), (96, 320)  # the debug step's, / 4
+# a SemKITTI frame, padded to 384x1248, fuses at its own 376x1241, which is
+# no multiple of the 96x312 stride-4 maps (the JAX package's general
+# branch): K1 in the rpn head and twice a stage, the three x2 upsamples, K4;
+# no K3, and the dense depth's resize is a matmul; in clip mode and in the
+# eval hook's f32 image step alike
+SEMKITTI_EVAL_PER_FRAME = {"mask_pool": 7, "upsample2": 3, "map_render": 1}
+# the ASPP head adds one x2 upsample of its 19 maps, forward and backward
+ASPP_PER_STEP = {**PER_STEP, "upsample2": PER_STEP["upsample2"] + 1,
+                 "upsample2_bwd": PER_STEP["upsample2_bwd"] + 1}
+OPTIONS_HW = (1024, 2048)  # the STDC + ASPP steps' and the STDC clip's frames
+OPTIONS_STEPS = 3  # STDC + ASPP train steps
+OPTIONS_SETS = ["model.backbone=stdc1446", "model.with_semantic_aspp=true"]
+FPN_RTOL = 1e-4  # the aligned FPN on the card against the CPU, of max |cpu|
+
+
+def _semkitti_dir() -> str:
+    import os
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "work_dirs",
+                        "chip_smoke_semkitti")
+
+
+def check_converter(dev) -> tuple:
+    """Phase 10, the checkpoint converter: phase 8's seeded ``video_r50_1x``
+    weights saved as an mmcv-style ``.pth`` (``state_dict`` and a ``meta``
+    with a ``datetime`` and an ``OrderedDict``), converted by ``python -m
+    polyphonicformer_torch.tools.convert_torch_ckpt --video``
+    (``weights_only=True``), equal bit for bit to phase 8's directly
+    pickled variables; then ``tools/eval_video.py`` from the converted
+    ``.pkl`` over the first clip of phase 8's split, its dumps bit-equal to
+    phase 8's clip run."""
+    import collections
+    import datetime
+    import os
+
+    import numpy as np
+    import torch
+
+    from polyphonicformer_torch.evalutils.dvpq import list_frames
+    from polyphonicformer_torch.tools import eval_video
+    from polyphonicformer_torch.weights import flatten_tree, load_variables
+
+    kernels = _kernels()
+    work = _eval_dir()
+    root, direct = os.path.join(work, "data"), os.path.join(work, "video_r50_1x_seed0.pkl")
+    _, model, _ = _serving_model("video_r50_1x", dev)
+    pth, out = os.path.join(work, "video_r50_1x_seed0.pth"), os.path.join(work, "converted.pkl")
+    meta = {"mmdet_version": "2.14.0", "time": datetime.datetime.now(),
+            "config": collections.OrderedDict(model="PolyphonicFormer", lr=2e-4)}
+    torch.save({"state_dict": collections.OrderedDict(
+        (k, v.detach().cpu()) for k, v in model.state_dict().items()), "meta": meta}, pth)
+    del model
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "polyphonicformer_torch.tools.convert_torch_ckpt", "--ckpt", pth,
+         "--out", out, "--video"], cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=600)
+    convert_s = time.perf_counter() - t0
+    _check("converter", proc.returncode == 0, proc.stdout[-1000:] + proc.stderr[-3000:])
+    got, want = load_variables(out), load_variables(direct)
+    for coll in ("params", "batch_stats"):
+        g, w = flatten_tree(got[coll]), flatten_tree(want[coll])
+        _check(f"converter {coll}", set(g) == set(w) and all(
+            g[k].dtype == w[k].dtype and np.array_equal(g[k], w[k]) for k in w),
+            "the converted variables differ from the directly pickled ones")
+
+    conv_dir = os.path.join(work, "clip_converted")
+    for k in kernels.values():
+        k.launches = 0
+    eval_video.main(["--data-root", root, "--checkpoint", out, "--preset", "video_r50_1x",
+                     "--bf16", "--workers", str(EVAL_WORKERS), "--eval-dir", conv_dir,
+                     "--clip-len", str(EVAL_FRAMES), "--max-frames", str(EVAL_FRAMES),
+                     "--skip-aggregate"])
+    launches = _count_launches(kernels, PER_FRAME, EVAL_FRAMES, "converted eval_video")
+    compared = 0
+    for kind in ("pred", "gt"):
+        dumps = list_frames(conv_dir, kind)
+        _check(f"converted {kind} dumps", len(dumps) == EVAL_FRAMES, f"{len(dumps)} dumps")
+        for p in dumps:
+            fa = np.load(p)
+            fb = np.load(os.path.join(work, "clip", kind, os.path.basename(p)))
+            for key in ("panseg", "depth"):
+                _check(f"converted {kind} {os.path.basename(p)} {key}",
+                       fa[key].dtype == fb[key].dtype and np.array_equal(fa[key], fb[key]),
+                       "differs from phase 8's clip run")
+            compared += 1
+    return {"convert_s": convert_s, "pth_mib": os.path.getsize(pth) / 2 ** 20,
+            "pkl_mib": os.path.getsize(out) / 2 ** 20, "variables_bit_equal": True,
+            "dumps_bit_equal": compared, "launches": launches}, launches
+
+
+def _loader_batch(root: str, cfg):
+    """One batch of ``cfg``'s train loader (thread backend, one worker,
+    seed 0, on the CPU) over the split at ``root``, its images normalised
+    to f32."""
+    import torch
+
+    from polyphonicformer_torch.data.cityscapes_dvps import CityscapesDVPSDataset
+    from polyphonicformer_torch.data.loader import TrainLoader
+    from polyphonicformer_torch.train.step import normalize_uint8_image
+
+    dc = cfg.data
+    ds = CityscapesDVPSDataset(root, split="train", ref_sample_mode=dc.ref_sample_mode,
+                               ref_seq_index=dc.ref_seq_index, with_depth=True)
+    loader = TrainLoader(ds, dc, cfg.model, seed=0, num_workers=1, device="cpu")
+    it = iter(loader)
+    try:
+        batch = next(it)
+    finally:
+        loader.stop()
+
+    def image(x):
+        return normalize_uint8_image(x, dc.mean, dc.std) if x.dtype == torch.uint8 else x
+
+    return batch._replace(image=image(batch.image), ref_image=image(batch.ref_image))
+
+
+def run_semkitti(dev, ckpt: str) -> tuple:
+    """Phase 10, SemKITTI-DVPS: a train split of SEMKITTI_SEQS x
+    SEMKITTI_FRAMES frames and a val split of SEMKITTI_VAL_SEQS x
+    SEMKITTI_VAL_FRAMES at 376x1241 in the SemKITTI-DVPS layout (class and
+    instance PNGs, the focal length in the depth name; Paeth rows, ~20
+    things a frame), ``tools/train.py --preset video_r50_semkitti_1x
+    --loader process`` at batch SEMKITTI_BATCH, f32, from ``ckpt`` for
+    SEMKITTI_STEPS steps with the eval hook, then ``tools/eval_video.py
+    --preset video_r50_semkitti_1x --bf16`` in clip mode over the val split
+    (DVPQ and STQ); before them a debug-width ``semantic_kitti`` batch-2
+    video step from the train loader over a 94x310 SemKITTI split (crop
+    96x320, nearest GT downsample) on the card against the card's plain
+    route, its distance from the CPU's f64 step reported."""
+    import dataclasses
+    import math
+    import os
+    import shutil
+
+    import torch
+
+    from polyphonicformer_torch.configs import preset
+    from polyphonicformer_torch.data.synthetic_split import write_semkitti_split
+    from polyphonicformer_torch.evalutils import runner
+    from polyphonicformer_torch.tools import eval_video, train
+
+    kernels = _kernels()
+    work = _semkitti_dir()
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    eval_runs, real_eval = [], runner.evaluate_frames
+
+    def counted_eval(*a, **kw):  # the hook's launches, apart from the steps'
+        before = {n: k.launches for n, k in kernels.items()}
+        result = real_eval(*a, **kw)
+        eval_runs.append({n: k.launches - before[n] for n, k in kernels.items()})
+        return result
+
+    runner.evaluate_frames = counted_eval
+    try:
+        root, small = os.path.join(work, "data"), os.path.join(work, "small")
+        h, w = SEMKITTI_HW
+        t0 = time.perf_counter()
+        write_semkitti_split(root, "train", SEMKITTI_SEQS, SEMKITTI_FRAMES, h, w, seed=0,
+                             filter_type=4)
+        write_semkitti_split(root, "val", SEMKITTI_VAL_SEQS, SEMKITTI_VAL_FRAMES, h, w, seed=1,
+                             filter_type=4)
+        write_s = time.perf_counter() - t0
+        write_semkitti_split(small, "train", 2, 4, *SEMKITTI_SMALL_HW, seed=2)
+        sk, tiny = preset("video_r50_semkitti_1x"), preset("debug_tiny_video")
+        small_cfg = dataclasses.replace(
+            tiny, model=dataclasses.replace(tiny.model, semantic_kitti=True),
+            data=dataclasses.replace(sk.data, img_size=SEMKITTI_SMALL_CROP,
+                                     batch_size=SEMKITTI_BATCH))
+        host = _loader_batch(small, small_cfg)
+        info = {"preset": "video_r50_semkitti_1x", "hw": [h, w], "batch": SEMKITTI_BATCH,
+                "split_write_s": write_s,
+                "small_reference": check_step_reference(
+                    dev, small_cfg, lambda device: _to_device(host, device), "card_plain")}
+
+        sets = [f"data.batch_size={SEMKITTI_BATCH}", "data.repeat_times=1",
+                f"schedule.log_interval={TRAIN_LOG_INTERVAL}"]
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = train.main(["--preset", "video_r50_semkitti_1x", "--data-root", root,
+                          "--work-dir", os.path.join(work, "run"), "--load-from", ckpt,
+                          "--loader", "process", "--max-steps", str(SEMKITTI_STEPS),
+                          "--set", *sets])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        evals = {n: sum(r[n] for r in eval_runs) for n in kernels}
+        n_steps = out["end_step"] - out["start_step"]
+        steps_only = {n: k.launches - evals[n] for n, k in kernels.items()}
+        for n, v in steps_only.items():
+            _check(f"semkitti train launches {n}", v == PER_STEP.get(n, 0) * n_steps,
+                   f"{v} launches in {n_steps} steps, expected {PER_STEP.get(n, 0)} a step")
+        n_val = SEMKITTI_VAL_SEQS * SEMKITTI_VAL_FRAMES
+        n_frames = len(out["evals"]) * n_val
+        for n, v in evals.items():
+            _check(f"semkitti eval hook launches {n}",
+                   v == SEMKITTI_EVAL_PER_FRAME.get(n, 0) * n_frames,
+                   f"{v} launches in {n_frames} eval frames")
+        train_launches = {n: k.launches for n, k in kernels.items()}
+        spe = out["steps_per_epoch"]
+        _check("semkitti evals", [e["step"] for e in out["evals"]]
+               == list(range(spe, SEMKITTI_STEPS + 1, spe)) and all(
+                   math.isfinite(v) for e in out["evals"] for v in e["metrics"].values()),
+               json.dumps(out["evals"]))
+        lines = _metric_lines(out["metrics_path"])
+
+        eval_dir = os.path.join(work, "eval")
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        res = eval_video.main(["--data-root", root, "--checkpoint", ckpt, "--preset",
+                               "video_r50_semkitti_1x", "--bf16", "--workers", str(EVAL_WORKERS),
+                               "--eval-dir", eval_dir, "--clip-len", str(SEMKITTI_VAL_FRAMES),
+                               "--eval-stq", "--nproc", "8"])
+        eval_s = time.perf_counter() - t0
+        eval_launches = _count_launches(kernels, SEMKITTI_EVAL_PER_FRAME, n_val,
+                                        "semkitti eval_video")
+        results = res["results"]
+        _check("semkitti dvpq", all(math.isfinite(v) for v in results["average"].values())
+               and all(math.isfinite(v) for v in results["stq"].values()), json.dumps(results))
+    finally:
+        runner.evaluate_frames = real_eval
+        shutil.rmtree(work, ignore_errors=True)
+
+    walls = [s * 1e3 for s in out["step_wall_s"][1:]]
+    last = slice(-TRAIN_LOG_INTERVAL, None)
+    inf = res["inference"]
+    info.update({
+        "train_cli": {
+            "cli_wall_s": cli_s, "steps": n_steps,
+            # the last log interval: no save or evaluation inside it
+            "steady_samples_per_s": lines[-1]["samples_per_sec"],
+            "median_step_wall_ms": statistics.median(walls),
+            "steady_median_step_wall_ms": statistics.median(walls[last]),
+            "steady_median_sample_wait_ms": statistics.median(
+                s * 1e3 for s in out["sample_wait_s"][1:][last]),
+            "total_loss": [r["total_loss"] for r in lines], "peak_mem_gib": peak / 2 ** 30,
+            "launches_a_step": {n: steps_only[n] / n_steps for n in PER_STEP},
+            "eval_hook": [{"step": e["step"], "s": e["s"], "pq@inf": e["metrics"]["pq@inf"]}
+                          for e in out["evals"]]},
+        "eval_video": {"frames": n_val, "clip_len": SEMKITTI_VAL_FRAMES,
+                       "frames_per_s": inf["frames_per_s"],
+                       "steady_frames_per_s": inf["steady_frames_per_s"],
+                       "cli_wall_s": eval_s, "aggregate_s": res["aggregate_s"],
+                       "dvpq_average": results["average"], "stq": results["stq"],
+                       "launches_a_frame": {n: eval_launches[n] / n_val
+                                            for n in SEMKITTI_EVAL_PER_FRAME}}})
+    launches = {n: train_launches[n] + eval_launches[n] for n in kernels}
+    info["launches"] = launches
+    return info, launches
+
+
+def _to_device(batch, device):
+    from polyphonicformer_torch.data.structures import GTSample
+
+    return batch._replace(image=batch.image.to(device), ref_image=batch.ref_image.to(device),
+                          gt=GTSample(*(t.to(device) for t in batch.gt)),
+                          ref_gt=GTSample(*(t.to(device) for t in batch.ref_gt)))
+
+
+def run_stdc_aspp(dev) -> tuple:
+    """Phase 10, STDC and ASPP: ``image_r50_2x`` with OPTIONS_SETS (the
+    CLIs' ``--set``) trained OPTIONS_STEPS steps at 1024x2048, batch 1, f32
+    (ASPP_PER_STEP launches a step, ``loss_aspp_semseg`` finite, the STDC
+    stem trained); the same configuration at debug widths, 64x128, on the
+    card against the card's plain route, and with cuDNN off against the
+    CPU's f64 step (``check_step_reference``); an 8-frame 1024x2048 bf16 clip of
+    ``video_r50_1x`` on ``stdc813`` (PER_FRAME launches a frame)."""
+    import torch
+
+    from polyphonicformer_torch.configs import apply_overrides, parse_overrides, preset
+    from polyphonicformer_torch.data.synthetic import synthetic_batch
+    from polyphonicformer_torch.models import PolyphonicFormer
+    from polyphonicformer_torch.train.step import create_train_state, make_train_step
+
+    kernels = _kernels()
+    cfg = apply_overrides(preset("image_r50_2x"), parse_overrides(OPTIONS_SETS))
+    _check("options config", cfg.model.backbone == "stdc1446" and cfg.model.with_semantic_aspp,
+           f"{cfg.model.backbone} {cfg.model.with_semantic_aspp}")
+    h, w = OPTIONS_HW
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    with torch.device("meta"):
+        model = PolyphonicFormer(cfg.model)
+    state, opt = create_train_state(model, cfg, gen, steps_per_epoch=1000, device=dev)
+    step = make_train_step(state.model, cfg, opt)
+    batch = synthetic_batch(cfg.model, 1, (h, w), seed=0, max_instances=24, device=dev)
+    stem = state.model.backbone.stem0.conv.weight.detach().clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    step_s, metrics = [], []
+    for _ in range(OPTIONS_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = _count_launches(kernels, ASPP_PER_STEP, OPTIONS_STEPS, "stdc+aspp train")
+    peak = torch.cuda.max_memory_allocated()
+    for i, m in enumerate(metrics):
+        _finite_metrics(f"stdc+aspp step {i}", m)
+        _check(f"stdc+aspp step {i}", m.get("loss_aspp_semseg", 0.0) > 0.0,
+               "no loss_aspp_semseg")
+    _check("stdc stem trained", not torch.equal(state.model.backbone.stem0.conv.weight, stem),
+           "the STDC stem did not move")
+    del state, opt, step, model, batch
+    torch.cuda.empty_cache()
+
+    small = apply_overrides(preset("debug_tiny"), parse_overrides(OPTIONS_SETS))
+    reference = check_step_reference(
+        dev, small, lambda device: synthetic_batch(small.model, 1, (64, 128), seed=0,
+                                                   max_instances=6, device=device),
+        "card_plain", video=False, per_step=ASPP_PER_STEP, cudnn_witness=True)
+
+    scfg, smodel, sgen = _serving_model("video_r50_1x", dev, backbone="stdc813")
+    frames = _frames(sgen, 8, h, w, 64, dev)
+    # random STDC weights need not score a thing above the tracker's
+    # thresholds: the launches a frame are the same either way (reported)
+    serve_launches, serve = _serve_clip("stdc813 clip", smodel, scfg, frames, PER_FRAME, dev,
+                                        require_tracks=False)
+    serve["preset"] = "video_r50_1x, model.backbone=stdc813"
+    del smodel, frames
+    torch.cuda.empty_cache()
+    info = {"train": {"preset": "image_r50_2x", "set": OPTIONS_SETS, "hw": [h, w], "batch": 1,
+                      "dtype": "float32", "cold_step_s": step_s[0],
+                      "warm_steps_ms": [s * 1e3 for s in step_s[1:]],
+                      "median_warm_step_ms": statistics.median(s * 1e3 for s in step_s[1:]),
+                      "peak_mem_gib": peak / 2 ** 30,
+                      "loss_aspp_semseg": [m["loss_aspp_semseg"] for m in metrics],
+                      "total_loss": [m["total_loss"] for m in metrics], "launches": launches},
+            "small_reference": reference, "serve_stdc813": serve}
+    return info, {n: launches[n] + serve_launches[n] for n in kernels}
+
+
+def _seeded_head(head, seed: int):
+    """Seeded weights for a ``UperNetAlignHead``: kernels at 1/sqrt of their
+    fan-in (the offset conv's too, so that the deformable taps move), BN
+    statistics and affines away from identity."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in [*head.named_parameters(), *head.named_buffers()]:
+            if name.endswith("running_var"):
+                t.copy_(0.5 + torch.rand(t.shape, generator=gen))
+            elif name.endswith(("running_mean", "bias")):
+                t.copy_(0.1 * torch.randn(t.shape, generator=gen))
+            elif t.dim() == 1:
+                t.copy_(1.0 + 0.1 * torch.randn(t.shape, generator=gen))
+            else:
+                t.copy_(torch.randn(t.shape, generator=gen) / t[0].numel() ** 0.5)
+    return head
+
+
+def check_aligned_fpn(dev) -> dict:
+    """Phase 10, the flow-aligned FPN (``UperNetAlignHead`` v1 and v2,
+    standalone as the JAX package tests it): at a small size (levels of
+    64-512 channels, 16x32 to 2x4) on the card against the CPU, within
+    FPN_RTOL of max |cpu|; then once at the R50 FPN shapes of a 1024x2048
+    image (four levels of 256 channels, 256x512 to 32x64): warm ms (median
+    of 3, CUDA events) and peak memory."""
+    import copy
+
+    import torch
+
+    from polyphonicformer_torch.models.aligned_fpn import UperNetAlignHead
+
+    out = {"tolerance": FPN_RTOL}
+    g = torch.Generator().manual_seed(7)
+    small = ((64, 16, 32), (128, 8, 16), (256, 4, 8), (512, 2, 4))
+    feats = [torch.randn((1, c, fh, fw), generator=g) for c, fh, fw in small]
+    for v in ("v1", "v2"):
+        cpu = _seeded_head(UperNetAlignHead([c for c, _, _ in small], 64, v), 1)
+        gpu = copy.deepcopy(cpu).to(dev)
+        with torch.no_grad():
+            want = cpu(feats)
+            got = gpu([f.to(dev) for f in feats]).cpu()
+        rel = float((got - want).abs().max()) / float(want.abs().max())
+        _check(f"aligned fpn {v}", got.shape == (1, 64, 8, 16) and rel <= FPN_RTOL,
+               f"{tuple(got.shape)}, max err {rel} of max |cpu|")
+        out[f"small_{v}_max_rel_err"] = rel
+    gd = torch.Generator(device=dev)
+    gd.manual_seed(8)
+    fh, fw = OPTIONS_HW
+    feats = [torch.randn((1, 256, fh // s, fw // s), generator=gd, device=dev)
+             for s in (4, 8, 16, 32)]
+    for v in ("v1", "v2"):
+        head = _seeded_head(UperNetAlignHead([256] * 4, 256, v), 2).to(dev)
+        with torch.no_grad():
+            head(feats)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(3):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                y = head(feats)
+                b.record()
+                b.synchronize()
+                times.append(a.elapsed_time(b))
+        _check(f"aligned fpn full {v}", y.shape == (1, 256, fh // 8, fw // 8)
+               and bool(torch.isfinite(y).all()), f"{tuple(y.shape)}")
+        out[f"full_{v}"] = {"ms": statistics.median(times), "ms_all": times,
+                            "peak_mem_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30}
+        del head, y
+    return out
+
+
+def run_options(dev):
+    """Phase 10: the model options (converter, SemKITTI-DVPS, STDC + ASPP,
+    the aligned FPN), each counting its kernel launches."""
+    import os
+
+    kernels = _kernels()
+    info, launches = {}, {n: 0 for n in kernels}
+    ckpt = os.path.join(_eval_dir(), "video_r50_1x_seed0.pkl")
+    for key, fn in (("converter", check_converter),
+                    ("semkitti", lambda d: run_semkitti(d, ckpt)),
+                    ("stdc_aspp", run_stdc_aspp)):
+        info[key], part = fn(dev)
+        print(f"[10 {key}] {json.dumps(info[key])}", flush=True)
+        launches = {n: launches[n] + part[n] for n in kernels}
+    info["aligned_fpn"] = check_aligned_fpn(dev)
+    print(f"[10 aligned_fpn] {json.dumps(info['aligned_fpn'])}", flush=True)
+    return launches, info
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 """Configuration of the port's serving and training paths (image and
-2-frame video).
+2-frame video, Cityscapes-DVPS and SemKITTI-DVPS).
 
 The fields of ``polyphonicformer_tpu/configs/config.py`` that the port
 reads, under the same names and with the same defaults (the reference's
@@ -117,11 +117,18 @@ class ModelConfig:
     # bf16 fusion: thing rows with full render capacity; the rest fold into
     # the K3 kernel's max channel (53 + 11 stuff = 64 rows)
     fusion_full_things: int = 53
-    with_semantic_aspp: bool = False  # the ASPP head is not ported (raises)
+    # the ASPP auxiliary semantic head (reference semantic_out_cfg; off in
+    # every shipped config): its map feeds loss_aspp_semseg only
+    with_semantic_aspp: bool = False
+    aspp_dilations: tuple = (1, 6, 12, 18)
+    loss_aspp_weight: float = 1.0
     with_track: bool = False
     track_head: TrackHeadConfig = TrackHeadConfig()
     tracker: TrackerConfig = TrackerConfig()
     max_things: int = 64  # GT thing instances per image after padding
+    # SemKITTI-DVPS mode: GT masks downsample with nearest instead of
+    # bilinear (reference polyphonic_former.py:77-80)
+    semantic_kitti: bool = False
     compute_dtype: str = "float32"  # 'bfloat16': bf16 forward, f32 master weights
     # recompute the backbone in the backward pass (torch.utils.checkpoint)
     remat_backbone: bool = True
@@ -207,6 +214,8 @@ def _debug_tiny_video() -> ExperimentConfig:
 # models/polyphonic.py, the Swin branch of PolyphonicFormer.setup
 SWIN_SPECS = {"swin_tiny": (96, (2, 2, 6, 2), (3, 6, 12, 24)),
               "swin_large": (192, (2, 2, 18, 2), (6, 12, 24, 48))}
+# backbone -> STDC blocks per stage; the STDC branch of the same setup
+STDC_LAYERS = {"stdc813": (2, 2, 2), "stdc1446": (4, 5, 3)}
 
 
 def _video_r50_1x() -> ExperimentConfig:
@@ -215,6 +224,18 @@ def _video_r50_1x() -> ExperimentConfig:
         data=DataConfig(ref_seq_index=(-2, -1, 1, 2), repeat_times=4, batch_size=16),
         schedule=ScheduleConfig(lr=2e-4, total_epochs=12, lr_decay_epochs=(8, 11)),
         work_dir="work_dirs/poly_r50_video_1x")
+
+
+def _video_r50_semkitti_1x() -> ExperimentConfig:
+    """SemKITTI-DVPS: the video model with the nearest GT downsample, on
+    384x1248 crops of the SemKITTI-DVPS frames (the Cityscapes-DVPS
+    ``video_sequence`` layout)."""
+    cfg = _video_r50_1x()
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, semantic_kitti=True),
+        data=dataclasses.replace(cfg.data, data_root="data/semkitti-dvps",
+                                 img_size=(384, 1248), ratio_range=(1.0, 2.0)),
+        work_dir="work_dirs/poly_r50_semkitti_1x")
 
 
 def _video_swinl() -> ExperimentConfig:
@@ -230,6 +251,8 @@ PRESETS = {
     "image_r50_2x": lambda: ExperimentConfig(work_dir="work_dirs/poly_r50_image_2x"),
     # reference configs/polyphonic_video/poly_r50_cityscapes_1x.py
     "video_r50_1x": _video_r50_1x,
+    # the JAX package's video_r50_semkitti_1x (semantic_kitti mode)
+    "video_r50_semkitti_1x": _video_r50_semkitti_1x,
     # the JAX package's video_swinl: video_r50_1x on swin_large, in bf16
     "video_swinl": _video_swinl,
     "debug_tiny": _debug_tiny,

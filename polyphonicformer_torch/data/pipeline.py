@@ -8,7 +8,8 @@ rejected when no thing instance survives in both frames,
 transforms.py:300-310), SeqNormalizeWithDepth + SeqPadWithDepth (divisor
 32), and the GT preparation the reference does on the GPU each step
 (polyphonic_former.py:60-94): pad and bilinear-downsample the masks to
-stride 4, nearest-downsample depth, split thing and stuff.  cv2's resizes
+stride 4 (nearest in the SemKITTI-DVPS mode, ``semantic_kitti``),
+nearest-downsample depth, split thing and stuff.  cv2's resizes
 are emulated bit for bit by :mod:`.resize`; the ``random.Random`` draws are
 the JAX pipeline's, in its order.
 
@@ -18,9 +19,7 @@ normalisation, as mmdet pads after Normalize.  (The JAX pipeline pads the
 raw uint8 crop with 0 before the normalisation, so where an image was
 smaller than the crop its pad is ``-mean / std`` instead of 0: fault F2.)
 
-Test half: ``normalize_image``, ``pad_to``, ``make_test_input``.  The
-SemKITTI branch of ``frame_to_sample`` (nearest GT downsample) is not
-ported.
+Test half: ``normalize_image``, ``pad_to``, ``make_test_input``.
 """
 from __future__ import annotations
 
@@ -120,7 +119,12 @@ def frame_to_sample(frame: Dict, model_cfg, pad_hw: Tuple[int, int]) -> Dict[str
     masks = frame["masks"]
     small = np.zeros((len(masks), ah, aw), np.float32)
     for i, m in enumerate(masks):
-        small[i] = _downsample_mask_bilinear(pad_to(m, ph, pw), ah, aw)
+        padded = pad_to(m, ph, pw)
+        if model_cfg.semantic_kitti:
+            # SemKITTI mode: nearest GT downsample (polyphonic_former.py:77-80)
+            small[i] = _downsample_nearest_torch(padded.astype(np.float32), ah, aw)
+        else:
+            small[i] = _downsample_mask_bilinear(padded, ah, aw)
 
     is_thing = labels < nt
     thing_small = small[is_thing]

@@ -88,7 +88,7 @@ def _heads(model, images, compute_dtype):
     back in f32, each x2 upsample one launch for the whole batch."""
     model = cast_model(model, compute_dtype)
     fpn = model.extract_feat(images.to(compute_dtype))
-    out = model.forward_heads(fpn)
+    out = model.forward_heads(fpn, with_aspp=False)
     last = out.stages[-1]
     return model, fpn, _Heads(
         cls_probs=torch.sigmoid(last.cls_score.float()),

@@ -15,11 +15,12 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..configs import SWIN_SPECS
+from ..configs import STDC_LAYERS, SWIN_SPECS
 from .fpn import FPN
 from .kernel_head import KernelHead, RPNOutput
 from .kernel_update_head import KernelUpdateHead, StageOutput
 from .resnet import ResNet
+from .stdc import STDCNet
 from .swin import SwinTransformer
 from .track_head import TrackHead
 
@@ -40,22 +41,25 @@ class _RoIHead(nn.Module):
 
 class PolyphonicFormer(nn.Module):
     def __init__(self, cfg):
-        """cfg: a ``configs.ModelConfig`` (ResNet or Swin backbones)."""
+        """cfg: a ``configs.ModelConfig`` (ResNet, Swin or STDC backbones)."""
         super().__init__()
         if cfg.backbone.startswith("resnet"):
             self.backbone = ResNet(cfg.backbone)
             self.backbone.freeze(cfg.frozen_stages)
         elif cfg.backbone in SWIN_SPECS:  # no Swin stage is frozen (JAX is_frozen)
             self.backbone = SwinTransformer(*SWIN_SPECS[cfg.backbone])
+        elif cfg.backbone in STDC_LAYERS:  # nor any STDC parameter
+            self.backbone = STDCNet(layers=STDC_LAYERS[cfg.backbone])
         else:
-            raise NotImplementedError(f"backbone {cfg.backbone!r} is not ported yet")
+            raise ValueError(f"unknown backbone {cfg.backbone}")
         # JAX nn.remat: the backward recomputes the backbone's activations
-        self.remat_backbone = cfg.remat_backbone
+        # (ResNet and Swin; JAX does not remat STDC)
+        self.remat_backbone = cfg.remat_backbone and cfg.backbone not in STDC_LAYERS
         self.neck = FPN(self.backbone.out_channels, cfg.fpn_out_channels)
         self.rpn_head = KernelHead(
             cfg.fpn_out_channels, cfg.out_channels, cfg.num_proposals,
             cfg.num_thing_classes, cfg.num_stuff_classes, cfg.sem_fpn_gn_groups,
-            cfg.hard_mask_thr)
+            cfg.hard_mask_thr, cfg.with_semantic_aspp, cfg.aspp_dilations)
         self.roi_head = _RoIHead([
             KernelUpdateHead(cfg.num_classes, cfg.out_channels, cfg.num_heads,
                              cfg.feedforward_channels, cfg.hard_mask_thr,
@@ -71,8 +75,9 @@ class PolyphonicFormer(nn.Module):
             return self.neck(checkpoint(self.backbone, x, use_reentrant=False))
         return self.neck(self.backbone(x))
 
-    def forward_heads(self, fpn_feats) -> ModelOutput:
-        rpn = self.rpn_head(fpn_feats)
+    def forward_heads(self, fpn_feats, with_aspp: bool = True) -> ModelOutput:
+        """``with_aspp=False``: no ASPP map (serving never reads it)."""
+        rpn = self.rpn_head(fpn_feats, with_aspp)
         proposal_feats, mask_preds = rpn.proposal_feats, rpn.mask_preds
         depth_proposal = rpn.depth_proposal
         stages = []

@@ -2,7 +2,8 @@
 ``polyphonicformer_tpu/train/losses.py::compute_losses``:
 
 * rpn (KernelHead) losses: mask BCE, dice, rank CE over the proposal rows,
-  dense semantic focal loss, masked depth and the (logged, not optimised)
+  dense semantic focal loss, the ASPP head's softmax CE (with
+  ``with_semantic_aspp``), masked depth and the (logged, not optimised)
   dense depth;
 * per-stage (KernelUpdateHead) losses: cls focal with per-class weights,
   mask BCE, dice, rank CE and masked depth with the direct-depth last row;
@@ -22,6 +23,7 @@ from typing import Dict, List, NamedTuple, Tuple
 import torch
 
 from ..data.structures import GTSample
+from ..losses.cross_entropy import softmax_ce_ignore
 from ..losses.depth_loss import depth_loss, depth_loss_stacked
 from ..losses.focal import sigmoid_focal_loss_elements
 from ..models.polyphonic import ModelOutput
@@ -56,8 +58,6 @@ class Assignment(NamedTuple):
 
 def assign(cfg, out: ModelOutput, gt: GTSample) -> Assignment:
     """The x2 upsamples and every Hungarian matching of one step."""
-    if cfg.with_semantic_aspp:
-        raise NotImplementedError("the ASPP semantic head is not ported yet")
     b = out.rpn.mask_preds.shape[0]
     nt, np_ = cfg.num_thing_classes, cfg.num_proposals
     n_stages = len(out.stages)
@@ -182,6 +182,13 @@ def losses_from(cfg, out: ModelOutput, gt: GTSample, asg: Assignment
                                         cfg.focal_gamma, cfg.focal_alpha)
     losses["loss_rpn_seg"] = cfg.loss_seg_weight * (
         focal * seg_valid[..., None]).sum() / torch.clamp(seg_valid.sum(), min=1.0)
+
+    # the ASPP head's softmax CE, ignore_index = num_classes, over the same
+    # dense target and x2 upsampled like seg_preds (K2, K2b)
+    if out.rpn.aspp_seg_preds is not None:
+        scaled_aspp = _upsample2(out.rpn.aspp_seg_preds).movedim(1, -1)
+        losses["loss_aspp_semseg"] = cfg.loss_aspp_weight * softmax_ce_ignore(
+            scaled_aspp, seg_target, ignore_index=nc)
 
     # masked depth over the Q rows of the (one) dense depth, and dense depth
     rpn_depth_logits = asg.scaled_depth0[:, None].expand(b, nq, *asg.scaled_depth0.shape[1:])

@@ -1,13 +1,16 @@
 """Weight bridge between the JAX package's variables and the port's
 ``state_dict``, through the reference checkpoint's key mapping.
 
-The port's own copy of the ResNet and Swin parts of
-``polyphonicformer_tpu/tools/convert_torch_ckpt.py`` (``build_param_mapping``
-and its helpers, the layout transforms and the tree flattening), so the
-port imports nothing of the JAX package; ``tests/test_torch_weights.py``
-pins the copy to the original.  Every flax parameter path ('a/b/c', with a
-``BATCHSTATS::`` prefix for the statistics collection) maps onto one key of
-the reference model's state dict and a layout transform:
+The port's own copy of ``polyphonicformer_tpu/tools/convert_torch_ckpt.py``'s
+mapping (``build_param_mapping`` and its helpers, the layout transforms
+and the tree flattening), so the port imports nothing of the JAX package;
+``tests/test_torch_weights.py`` pins the copy to the original.  The STDC
+backbones and the ASPP head, which no reference checkpoint holds, map
+through :func:`_stdc_mapping` and :func:`_aspp_mapping` onto port keys
+named after the JAX flax paths (:func:`_mapping`).  The port's checkpoint
+converter is ``tools/convert_torch_ckpt.py``.  Every flax parameter path
+('a/b/c', with a ``BATCHSTATS::`` prefix for the statistics collection) maps
+onto one key of the reference model's state dict and a layout transform:
 
   conv weight   (O, I, kh, kw) -> (kh, kw, I, O)
   linear weight (O, I)         -> (I, O)
@@ -30,7 +33,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from .configs import SWIN_SPECS
+from .configs import STDC_LAYERS, SWIN_SPECS
 
 _STAGE_BLOCKS = {"resnet50": (3, 4, 6, 3)}
 _SWIN_DEPTHS = {name: spec[1] for name, spec in SWIN_SPECS.items()}
@@ -105,30 +108,43 @@ def _swin_mapping(depths) -> Mapping:
     return m
 
 
+def _backbone_mapping(depth: str) -> Mapping:
+    if depth in _SWIN_DEPTHS:
+        return _swin_mapping(_SWIN_DEPTHS[depth])
+    if depth not in _STAGE_BLOCKS:
+        raise ValueError(
+            f"unknown backbone {depth!r}; converter supports "
+            f"{sorted(_STAGE_BLOCKS) + sorted(_SWIN_DEPTHS)}")
+    m: Mapping = {}
+    m["backbone/conv1/kernel"] = ("backbone.conv1.weight", "conv")
+    m.update(_frozen_bn("backbone/bn1", "backbone.bn1"))
+    for s, blocks in enumerate(_STAGE_BLOCKS[depth]):
+        for b in range(blocks):
+            fp = f"backbone/layer{s + 1}_{b}"
+            tp = f"backbone.layer{s + 1}.{b}"
+            for c in (1, 2, 3):
+                m[f"{fp}/conv{c}/kernel"] = (f"{tp}.conv{c}.weight", "conv")
+                m.update(_frozen_bn(f"{fp}/bn{c}", f"{tp}.bn{c}"))
+            if b == 0:
+                m[f"{fp}/downsample_conv/kernel"] = (f"{tp}.downsample.0.weight", "conv")
+                m.update(_frozen_bn(f"{fp}/downsample_bn", f"{tp}.downsample.1"))
+    return m
+
+
 def build_param_mapping(num_stages: int = 3, depth: str = "resnet50",
                         with_track: bool = False, num_cls_fcs: int = 1,
                         num_mask_fcs: int = 1) -> Mapping:
     """flax path -> (torch state_dict key, transform), ResNet-50 and Swin
-    backbones."""
-    m: Mapping = {}
-    if depth in _SWIN_DEPTHS:
-        m.update(_swin_mapping(_SWIN_DEPTHS[depth]))
-    elif depth not in _STAGE_BLOCKS:
-        raise NotImplementedError(f"backbone {depth!r} is not ported yet")
-    else:
-        m["backbone/conv1/kernel"] = ("backbone.conv1.weight", "conv")
-        m.update(_frozen_bn("backbone/bn1", "backbone.bn1"))
-        for s, blocks in enumerate(_STAGE_BLOCKS[depth]):
-            for b in range(blocks):
-                fp = f"backbone/layer{s + 1}_{b}"
-                tp = f"backbone.layer{s + 1}.{b}"
-                for c in (1, 2, 3):
-                    m[f"{fp}/conv{c}/kernel"] = (f"{tp}.conv{c}.weight", "conv")
-                    m.update(_frozen_bn(f"{fp}/bn{c}", f"{tp}.bn{c}"))
-                if b == 0:
-                    m[f"{fp}/downsample_conv/kernel"] = (f"{tp}.downsample.0.weight", "conv")
-                    m.update(_frozen_bn(f"{fp}/downsample_bn", f"{tp}.downsample.1"))
+    backbones: the reference checkpoints' layout, as the JAX tool maps it
+    (which knows no STDC backbone and no ASPP head: see :func:`_mapping`)."""
+    m = _backbone_mapping(depth)
+    m.update(_head_mapping(num_stages, with_track, num_cls_fcs, num_mask_fcs))
+    return m
 
+
+def _head_mapping(num_stages: int, with_track: bool, num_cls_fcs: int,
+                  num_mask_fcs: int) -> Mapping:
+    m: Mapping = {}
     for i in range(4):
         m[f"neck/lateral_{i}/kernel"] = (f"neck.lateral_convs.{i}.conv.weight", "conv")
         m[f"neck/lateral_{i}/bias"] = (f"neck.lateral_convs.{i}.conv.bias", "copy")
@@ -263,9 +279,57 @@ def unflatten_tree(flat: Dict) -> Dict:
     return tree
 
 
+def _convx(flax_path: str, torch_prefix: str) -> Mapping:
+    """An STDC ConvX: conv and frozen BN."""
+    return {f"{flax_path}/conv/kernel": (f"{torch_prefix}.conv.weight", "conv"),
+            **_frozen_bn(f"{flax_path}/bn", f"{torch_prefix}.bn")}
+
+
+def _stdc_mapping(layers) -> Mapping:
+    """The STDC backbone of ``models/stdc.py`` (Cat bottlenecks of 4
+    ConvX, as ``PolyphonicFormer`` builds it).  No
+    reference checkpoint holds one, so the torch keys are the port's own,
+    named after the JAX flax paths; its BN statistics take the
+    ``BATCHSTATS::`` route, as ResNet's."""
+    m: Mapping = {}
+    for stem in ("stem0", "stem1"):
+        m.update(_convx(f"backbone/{stem}", f"backbone.{stem}"))
+    for i, num in enumerate(layers):
+        for j in range(num):
+            fp, tp = f"backbone/stage{i}_{j}", f"backbone.stage{i}_{j}"
+            for c in range(4):
+                m.update(_convx(f"{fp}/conv{c}", f"{tp}.conv{c}"))
+            if j == 0:  # the stride-2 block's depthwise "avd" conv
+                m[f"{fp}/avd_conv/kernel"] = (f"{tp}.avd_conv.weight", "conv")
+                m.update(_frozen_bn(f"{fp}/avd_bn", f"{tp}.avd_bn"))
+    return m
+
+
+def _aspp_mapping(dilations) -> Mapping:
+    """The ASPP auxiliary semantic head (``models/aspp.py``) and its 1x1
+    predictor: port keys named after the JAX flax paths, as for STDC."""
+    fp, tp = "rpn_head/semantic_aspp", "rpn_head.semantic_aspp"
+    m: Mapping = {}
+    names = [f"branch{i}" for i in range(len(dilations))] + ["image_pool", "project"]
+    for name in names:
+        m[f"{fp}/{name}_conv/kernel"] = (f"{tp}.{name}_conv.weight", "conv")
+        m.update(_ln(f"{fp}/{name}_gn", f"{tp}.{name}_gn"))
+    m["rpn_head/semantic_aspp_predict_weight"] = ("rpn_head.semantic_aspp_predict.weight",
+                                                  "squeeze11")
+    m["rpn_head/semantic_aspp_predict_bias"] = ("rpn_head.semantic_aspp_predict.bias", "copy")
+    return m
+
+
 def _mapping(cfg) -> Mapping:
-    return build_param_mapping(cfg.num_stages, cfg.backbone, cfg.with_track,
-                               cfg.num_cls_fcs, cfg.num_mask_fcs)
+    """The whole model's mapping: :func:`build_param_mapping`, with the STDC
+    backbone in place of ResNet's or Swin's, and the ASPP head where the
+    configuration has them."""
+    m = (_stdc_mapping(STDC_LAYERS[cfg.backbone]) if cfg.backbone in STDC_LAYERS
+         else _backbone_mapping(cfg.backbone))
+    m.update(_head_mapping(cfg.num_stages, cfg.with_track, cfg.num_cls_fcs, cfg.num_mask_fcs))
+    if cfg.with_semantic_aspp:
+        m.update(_aspp_mapping(cfg.aspp_dilations))
+    return m
 
 
 def from_jax_variables(variables_np, cfg) -> Dict[str, torch.Tensor]:
@@ -284,14 +348,13 @@ def from_jax_variables(variables_np, cfg) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def to_jax_variables(state_dict_np: Dict[str, np.ndarray], cfg,
-                     partial: bool = False) -> Dict:
+def map_state_dict(state_dict_np: Dict[str, np.ndarray], mapping: Mapping,
+                   partial: bool = False) -> Dict:
     """A state dict of numpy arrays -> {'params': ..., 'batch_stats': ...}
-    in the JAX layout (what ``convert_state_dict`` computes).  ``partial``
-    skips the keys the dict lacks (a dict of gradients has no frozen or
-    statistics entries) instead of raising."""
+    in the JAX layout through ``mapping``.  ``partial`` skips the keys the
+    dict lacks instead of raising ``KeyError``."""
     params, stats, missing = {}, {}, []
-    for path, (key, kind) in _mapping(cfg).items():
+    for path, (key, kind) in mapping.items():
         if key not in state_dict_np:
             missing.append(key)
             continue
@@ -303,6 +366,15 @@ def to_jax_variables(state_dict_np: Dict[str, np.ndarray], cfg,
     if missing and not partial:
         raise KeyError(f"{len(missing)} torch keys missing, e.g. {missing[:5]}")
     return {"params": unflatten_tree(params), "batch_stats": unflatten_tree(stats)}
+
+
+def to_jax_variables(state_dict_np: Dict[str, np.ndarray], cfg,
+                     partial: bool = False) -> Dict:
+    """A state dict of numpy arrays -> {'params': ..., 'batch_stats': ...}
+    in the JAX layout (what ``convert_state_dict`` computes).  ``partial``
+    skips the keys the dict lacks (a dict of gradients has no frozen or
+    statistics entries) instead of raising."""
+    return map_state_dict(state_dict_np, _mapping(cfg), partial)
 
 
 def to_numpy_state_dict(model: torch.nn.Module) -> Dict[str, np.ndarray]:

@@ -158,12 +158,16 @@ def test_import_leaves_jax_out():
     """Every module of the port, and ``chip_smoke``, import neither JAX
     (nor flax or optax) nor anything of the JAX package, nor cv2 or PIL:
     the machine with the card has none of them."""
+    new = ["tools.convert_torch_ckpt", "data.label_shift", "models.aspp", "models.stdc",
+           "models.aligned_fpn", "ops.grid_sample", "ops.deform_conv"]
     code = ("import importlib, pkgutil, sys, polyphonicformer_torch as p; "
             "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]; "
+            f"missing = [m for m in {new!r} if 'polyphonicformer_torch.' + m not in mods]; "
             "[importlib.import_module(m) for m in mods]; import chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'polyphonicformer_tpu', 'cv2', 'PIL')]; "
-            "print(len(mods), bad); sys.exit(1 if bad or len(mods) < 40 else 0)")
+            "print(len(mods), bad, missing); "
+            "sys.exit(1 if bad or missing or len(mods) < 80 else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
