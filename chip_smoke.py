@@ -67,7 +67,20 @@ against the CPU's f64 step), an 8-frame 1024x2048 bf16
 (``UperNetAlignHead`` v1 and v2 on the card against the CPU, then at the
 R50 FPN shapes of a 1024x2048 image).  Phase 3 also holds the kernels at
 phase 10's SemKITTI training and evaluation shapes and the ASPP head's.
-Phases 4 to 10 each count the kernel launches of their own run.  Any failed phase raises,
+Phase 11 runs the tools: ``tools/export.py`` (``video_r50_1x`` bf16 frame mode
+over 8 frames carrying the tracker state, the artifact loaded by
+``load_serving`` in a fresh process that builds no model: bit-equal to the
+eager ``video_frame_step`` and PER_FRAME launches a frame; the image mode and
+the clip mode at clip_len 2 loaded in this process, bit-equal to their eager
+steps; ``video_swinl`` frame mode, K8 4 and K7 20 launches a frame; export
+seconds, artifact bytes and frames/s beside eager by the port's
+``StepTimer``), ``tools/flops.py`` (``video_r50_1x``, ``video_swinl`` and
+STDC813 at 1024x2048), ``tools/parity_check.py`` on phase 8's split with
+phase 10's ``.pth`` (the measured values equal phase 8's, the gates at those
+values exit 0, one moved beyond its tolerance exits 1) and the host solver
+``ops/native.py::lsap_solve`` on phase 3's K5 problems (K5's assignments).
+Every kernel entry is a ``poly::`` custom op, so phase 3 holds the ops.
+Phases 4 to 11 each count the kernel launches of their own run.  Any failed phase raises,
 so the exit code is not 0.  The last lines are the
 card, a JSON object of per-kernel results and the JSON result line
 ``{"ok": true, "device": {...}}``.
@@ -765,6 +778,7 @@ def main() -> int:
         train_cli_launches, train_cli_info = run_train_cli(dev)
         print(f"[9 train_cli] {json.dumps(train_cli_info)}", flush=True)
         options_launches, _ = run_options(dev)
+        tools_launches, _ = run_tools(dev)
     finally:
         shutil.rmtree(_eval_dir(), ignore_errors=True)
     for r in rows:
@@ -775,7 +789,8 @@ def main() -> int:
                    "video": video_launches.get(kernel, 0),
                    "eval": eval_launches.get(kernel, 0),
                    "train_cli": train_cli_launches.get(kernel, 0),
-                   "options": options_launches.get(kernel, 0)}
+                   "options": options_launches.get(kernel, 0),
+                   "tools": tools_launches.get(kernel, 0)}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         _check(f"launches {r['name']}", r["launches"] > 0, "never launched on a main path")
@@ -1818,7 +1833,8 @@ def run_eval(dev):
             k.launches = 0
         t0 = time.perf_counter()
         metrics = eval_image.main(["--data-root", root, "--checkpoint", ckpt, "--preset",
-                                   "video_r50_1x", "--bf16"])
+                                   "video_r50_1x", "--bf16", "--out",
+                                   os.path.join(work, "eval_image.json")])
         image_s = time.perf_counter() - t0
         image_launches = _count_launches(kernels, PER_FRAME, n, "eval_image")
         _check("eval_image metrics", all(math.isfinite(v) for v in metrics.values()),
@@ -1841,8 +1857,8 @@ def run_eval(dev):
     except BaseException:
         shutil.rmtree(work, ignore_errors=True)
         raise
-    # the split, the checkpoint and the clip dumps stay for phase 10's
-    # converter check, which removes them
+    # the split, the checkpoint, the clip dumps and the metrics stay for
+    # phases 10 and 11; main removes them
 
     inf, sinf = out["inference"], stream["inference"]
     info.update({
@@ -2665,6 +2681,365 @@ def run_options(dev):
         launches = {n: launches[n] + part[n] for n in kernels}
     info["aligned_fpn"] = check_aligned_fpn(dev)
     print(f"[10 aligned_fpn] {json.dumps(info['aligned_fpn'])}", flush=True)
+    return launches, info
+
+
+
+EXPORT_HW = (1024, 2048)  # phase 11's frames
+EXPORT_FRAMES = 8  # frames of the loaded frame artifact, carrying the tracker state
+SWIN_EXPORT_FRAMES = 3
+FLOPS_MODELS = (("video_r50_1x", {}), ("video_swinl", {}),
+                ("video_r50_1x", {"backbone": "stdc813"}))
+# the child that loads the frame artifact: no model, no configuration
+ARTIFACT_RUNNER = r"""
+import json, sys, time
+import torch
+import chip_smoke
+from polyphonicformer_torch.infer.tracker import TrackerState
+from polyphonicformer_torch.tools.export import load_serving
+from polyphonicformer_torch.utils.profiling import StepTimer
+import polyphonicformer_torch.models.polyphonic as P
+def built(*a, **k):
+    raise AssertionError("a model was built")
+P.PolyphonicFormer.__init__ = built
+torch.backends.cuda.matmul.allow_tf32 = False  # as the parent: full f32 math
+torch.backends.cudnn.allow_tf32 = False
+dev = torch.device(sys.argv[3])
+inp = torch.load(sys.argv[2], weights_only=True, map_location=dev)
+t0 = time.perf_counter()
+fn = load_serving(sys.argv[1])
+load_s = time.perf_counter() - t0
+kernels = chip_smoke._kernels()
+for k in kernels.values():
+    k.launches = 0
+state, frames, ids = TrackerState(**inp["state"]), inp["frames"], inp["frame_ids"]
+timer, digests = StepTimer(warmup=2, device=dev), []
+for i in range(frames.shape[0]):
+    with timer:
+        out, state = fn(inp["sd"], frames[i:i + 1], state, ids[i])
+    digests.append(chip_smoke._digests((out, state)))
+print(json.dumps({"load_s": load_s, "digests": digests, "timer": timer.summary(),
+                  "launches": {n: k.launches for n, k in kernels.items()}}))
+"""
+
+
+def _leaves(x) -> list:
+    """The leaves of nested tuples, NamedTuples, lists and dataclasses."""
+    import dataclasses
+
+    if dataclasses.is_dataclass(x):
+        return [y for f in dataclasses.fields(x) for y in _leaves(getattr(x, f.name))]
+    if isinstance(x, (tuple, list)):
+        return [y for item in x for y in _leaves(item)]
+    return [x]
+
+
+def _digests(tree) -> list:
+    """sha256 of each tensor leaf's bytes (dtype and shape with it), repr of
+    the other leaves: equal lists mean bit-equal trees."""
+    import hashlib
+
+    import torch
+
+    out = []
+    for x in _leaves(tree):
+        if torch.is_tensor(x):
+            t = x.detach().cpu().contiguous()
+            h = hashlib.sha256(f"{t.dtype}{tuple(t.shape)}".encode())
+            h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+            out.append(h.hexdigest())
+        else:
+            out.append(repr(x))
+    return out
+
+
+def _reset(kernels) -> None:
+    for k in kernels.values():
+        k.launches = 0
+
+
+def _eager_frames(step, frames, state, ids, dev):
+    """``step`` over the frames carrying the state, each step timed by the
+    port's StepTimer (warmup 2): the digests of each frame's outputs and
+    state, and the timer's summary."""
+    from polyphonicformer_torch.utils.profiling import StepTimer
+
+    timer, digests = StepTimer(warmup=2, device=dev), []
+    for i in range(frames.shape[0]):
+        with timer:
+            out, state = step(frames[i:i + 1], state, ids[i])
+        digests.append(_digests((out, state)))
+    return digests, timer.summary()
+
+
+def _export_mode(model, cfg, mode: str, path: str, **kw) -> dict:
+    """Export ``mode`` of ``model`` (bf16), save it to ``path``: seconds,
+    bytes, the graph's poly:: ops, its nodes and its casts."""
+    import os
+
+    import torch
+
+    from polyphonicformer_torch.tools import export
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    program = export.export_program(model, cfg, mode, EXPORT_HW, bf16=True, **kw)
+    export_s = time.perf_counter() - t0
+    torch.export.save(program, path)
+    nodes = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+    return {"export_s": export_s, "bytes": os.path.getsize(path),
+            "poly_ops": export.poly_ops(program), "graph_nodes": len(nodes),
+            # the state dict's cast to bf16 inside the program, every call,
+            # and the model's own casts; and the checks export puts before
+            # a cast
+            "cast_nodes": sum(t.startswith("aten.to.") for t in nodes),
+            "assert_nodes": nodes.count("aten._assert_tensor_metadata.default")}
+
+
+def _export_frame_path(tag, preset, per_frame, frames_n, dev, work, fresh_process: bool):
+    """Phase 11, frame mode of ``preset`` in bf16: the eager step over the
+    frames, then the export loaded in a fresh process (``fresh_process``)
+    or in this one, bit-equal to eager frame by frame with ``per_frame``
+    launches a frame.  Returns (launches of both runs, info)."""
+    import dataclasses
+    import os
+
+    import torch
+
+    from polyphonicformer_torch.infer.pipeline import make_video_step
+    from polyphonicformer_torch.infer.tracker import init_tracker_state
+    from polyphonicformer_torch.tools import export
+
+    kernels = _kernels()
+    cfg, model, gen = _serving_model(preset, dev)
+    h, w = EXPORT_HW
+    frames = _frames(gen, frames_n, h, w, 64, dev)
+    ids = torch.arange(1, frames_n + 1, dtype=torch.int32, device=dev)
+    state0 = init_tracker_state(cfg.tracker, cfg.track_head.embed_channels, dev)
+    sd_bytes = sum(v.numel() * v.element_size() for v in model.state_dict().values())
+    bf16 = torch.bfloat16
+    step = make_video_step(model, cfg, (h, w), compute_dtype=bf16, fusion_dtype=bf16)
+    _reset(kernels)
+    eager, eager_t = _eager_frames(step, frames, state0, ids, dev)
+    launches = _count_launches(kernels, per_frame, frames_n, f"{tag} eager")
+    del step
+    path = os.path.join(work, f"{preset}_frame.pt2")
+    info = {"preset": preset, "hw": [h, w], "frames": frames_n, "dtype": "bfloat16",
+            "state_dict_bytes": sd_bytes, "state_dict_entries": len(model.state_dict()),
+            **_export_mode(model, cfg, "frame", path)}
+    want_ops = {"mask_pool": per_frame["mask_pool"], "upsample_int": per_frame["upsample2"],
+                "phase_fusion": per_frame["phase_fusion"], "render_maps": per_frame["map_render"]}
+    for op in ("window_attention", "window_attn_math"):
+        if per_frame.get(op):
+            want_ops[op] = per_frame[op]
+    _check(f"{tag} graph", info["poly_ops"] == want_ops, f"{info['poly_ops']} vs {want_ops}")
+    _check(f"{tag} bytes", info["bytes"] < sd_bytes / 10,
+           f"{info['bytes']} artifact bytes, state dict {sd_bytes}")
+    if fresh_process:
+        inputs = os.path.join(work, f"{preset}_inputs.pt")
+        torch.save({"sd": model.state_dict(), "frames": frames, "frame_ids": ids,
+                    "state": dataclasses.asdict(state0)}, inputs)
+        del model
+        torch.cuda.empty_cache()
+        proc = subprocess.run([sys.executable, "-c", ARTIFACT_RUNNER, path, inputs, str(dev)],
+                              cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=600)
+        _check(f"{tag} artifact process", proc.returncode == 0,
+               proc.stdout[-2000:] + proc.stderr[-4000:])
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+        loaded, loaded_t, art_launches = child["digests"], child["timer"], child["launches"]
+        info["load_s"] = child["load_s"]
+        _check(f"{tag} artifact launches", all(
+            art_launches[n] == per_frame.get(n, 0) * frames_n for n in art_launches),
+            f"{art_launches}, expected {per_frame} x {frames_n}")
+    else:
+        t0 = time.perf_counter()
+        fn = export.load_serving(path)
+        info["load_s"] = time.perf_counter() - t0
+        sd = model.state_dict()
+        _reset(kernels)
+        loaded, loaded_t = _eager_frames(lambda *a: fn(sd, *a), frames, state0, ids, dev)
+        art_launches = _count_launches(kernels, per_frame, frames_n, f"{tag} artifact")
+        del model, fn
+    _check(f"{tag} artifact vs eager", loaded == eager,
+           f"frames differing: {[i for i, (a, b) in enumerate(zip(loaded, eager)) if a != b]}")
+    info.update({"bit_equal_frames": len(eager), "eager": eager_t, "artifact": loaded_t,
+                 "eager_frames_per_s": eager_t["steps_per_sec"],
+                 "artifact_frames_per_s": loaded_t["steps_per_sec"],
+                 "launches_a_frame": {n: v / frames_n for n, v in art_launches.items() if v}})
+    torch.cuda.empty_cache()
+    return {n: launches[n] + art_launches[n] for n in launches}, info
+
+
+def _export_stateless(dev, work) -> tuple:
+    """Phase 11, the image mode and the clip mode (clip_len 2) of
+    ``video_r50_1x`` in bf16, each loaded in this process and bit-equal to
+    its eager step, PER_FRAME launches a frame."""
+    import os
+
+    import torch
+
+    from polyphonicformer_torch.infer.pipeline import make_clip_step, make_image_step
+    from polyphonicformer_torch.infer.tracker import init_tracker_state
+    from polyphonicformer_torch.tools import export
+
+    kernels = _kernels()
+    cfg, model, gen = _serving_model("video_r50_1x", dev)
+    h, w = EXPORT_HW
+    frames = _frames(gen, 2, h, w, 64, dev)
+    sd, bf16 = model.state_dict(), torch.bfloat16
+    state0 = init_tracker_state(cfg.tracker, cfg.track_head.embed_channels, dev)
+    fid = torch.ones((), dtype=torch.int32, device=dev)
+    # mode: (frames, the eager step, its call, the artifact's call)
+    runs = {"image": (1, lambda: make_image_step(model, cfg, (h, w), bf16, bf16),
+                      lambda fn: fn(frames[:1]), lambda fn: fn(sd, frames[:1])),
+            "clip": (2, lambda: make_clip_step(model, cfg, (h, w), bf16, bf16),
+                     lambda fn: fn(frames, state0, fid), lambda fn: fn(sd, frames, state0, fid))}
+    info, launches = {}, {n: 0 for n in kernels}
+    for mode, (n, make, call_eager, call_art) in runs.items():
+        want = _digests(call_eager(make()))
+        path = os.path.join(work, f"video_r50_1x_{mode}.pt2")
+        info[mode] = _export_mode(model, cfg, mode, path, **({"clip_len": 2} if mode == "clip"
+                                                               else {}))
+        fn = export.load_serving(path)
+        _reset(kernels)
+        got = _digests(call_art(fn))
+        part = _count_launches(kernels, PER_FRAME, n, f"{mode} artifact")
+        _check(f"{mode} artifact vs eager", got == want, "outputs differ")
+        info[mode]["bit_equal_leaves"] = len(got)
+        launches = {k: launches[k] + part[k] for k in launches}
+    return launches, info
+
+
+def _flops(dev) -> dict:
+    """Phase 11, ``tools/flops.py`` on the card at 1024x2048: the presets
+    through ``analyze``, the STDC813 model through ``count``."""
+    import torch
+
+    from polyphonicformer_torch.configs import model_preset
+    from polyphonicformer_torch.models import build_model
+    from polyphonicformer_torch.tools import flops
+
+    out = {}
+    for preset, repl in FLOPS_MODELS:
+        name = repl.get("backbone", preset)
+        t0 = time.perf_counter()
+        if repl:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(0)
+            model = build_model(model_preset(preset, **repl), dev, generator=gen)
+            res = flops.count(model, torch.zeros((1, *EXPORT_HW, 3), device=dev))
+            del model
+        else:
+            res = flops.analyze(preset, EXPORT_HW, 1, dev)
+        _check(f"flops {name}", res["params_M"] > 0 and res["flops_G"] > 0
+               and res["bytes_accessed_GB"] > 0, json.dumps(res))
+        out[name] = {**res, "wall_s": time.perf_counter() - t0}
+        torch.cuda.empty_cache()
+    return out
+
+
+def _parity(work) -> dict:
+    """Phase 11, ``tools/parity_check.py`` on phase 8's split: phase 10's
+    seeded ``video_r50_1x`` ``.pth`` and the same weights without the track
+    head as the image model's ``.pth``, bf16, as phase 8 evaluates.  The
+    measured values equal phase 8's DVPQ cells and its ``eval_image``
+    metrics (the same weights: the image preset's model is the video
+    preset's without the track head); the gates set to phase 8's values
+    pass (exit 0), and with PQ moved by twice its tolerance the image stage
+    fails (exit 1)."""
+    import os
+
+    import torch
+
+    from polyphonicformer_torch.tools import parity_check
+    from polyphonicformer_torch.tools.convert_torch_ckpt import load_torch_state_dict
+
+    root = os.path.join(work, "data")
+    video_pth = os.path.join(work, "video_r50_1x_seed0.pth")
+    image_pth = os.path.join(work, "image_r50_seed0.pth")
+    sd = load_torch_state_dict(video_pth)
+    torch.save({"state_dict": {k: torch.from_numpy(v) for k, v in sd.items()
+                               if not k.startswith("track_head.")}}, image_pth)
+    with open(os.path.join(work, "clip", "dvpq.json")) as f:
+        dvpq = json.load(f)
+    with open(os.path.join(work, "eval_image.json")) as f:
+        image = json.load(f)
+    phase8 = {f"dvpq_{cell}" if name == "pq" else f"dvpq_{cell}_{name[3:]}": v
+              for cell, vals in dvpq.items() if cell != "stq" for name, v in vals.items()}
+    phase8["dvpq_average"] = dvpq["average"]["pq"]
+    phase8.update({k: v for k, v in image.items() if v is not None})
+    gates = {k: phase8[k] for k in ("pq@inf", "depth_abs_rel", "dvpq_average")}
+    common = ["--data-root", root, "--preset-image", "image_r50_2x", "--bf16"]
+    t0 = time.perf_counter()
+    rc = parity_check.main(common + [
+        "--image-pth", image_pth, "--video-pth", video_pth, "--preset-video", "video_r50_1x",
+        "--clip-len", str(EVAL_FRAMES), "--workers", str(EVAL_WORKERS), "--nproc", "8",
+        "--workdir", os.path.join(work, "parity"),
+        "--expected", *[f"{k}={v!r}" for k, v in gates.items()]])
+    wall_s = time.perf_counter() - t0
+    with open(os.path.join(work, "parity", "parity.json")) as f:
+        measured = json.load(f)
+    differ = sorted(k for k in set(measured) | set(phase8) if measured.get(k) != phase8.get(k))
+    _check("parity measured", not differ, f"keys differing from phase 8's: {differ[:8]}")
+    _check("parity gates pass", rc == 0, f"exit {rc}")
+    moved = f"pq@inf={gates['pq@inf'] + 0.002!r}"
+    rc_fail = parity_check.main(common + ["--image-pth", image_pth, "--workdir",
+                                          os.path.join(work, "parity_fail"), "--expected", moved])
+    _check("parity moved gate fails", rc_fail == 1, f"exit {rc_fail}")
+    return {"measured_keys": len(measured), "equal_to_phase8": True, "exit_pass": rc,
+            "exit_moved_gate": rc_fail, "wall_s": wall_s, "gates": gates}
+
+
+def _host_lsa(dev) -> dict:
+    """Phase 11, the host solver ``ops/native.py::lsap_solve`` on phase 3's
+    K5 problems (``kernel_probe._phase3_lsa_problems``): each problem's
+    valid rows of the prepared costs give K5's assignment."""
+    import numpy as np
+
+    from polyphonicformer_torch.ops import native
+    from polyphonicformer_torch.ops.cuda import lsa
+    from polyphonicformer_torch.tools import kernel_probe
+
+    costs, valid = kernel_probe._phase3_lsa_problems(dev)
+    k5 = lsa.solve_lsa(costs, valid).cpu().numpy()
+    prepared, valid_np = lsa.prepare(costs, valid).cpu().numpy(), valid.cpu().numpy()
+    rows = 0
+    for i in range(costs.shape[0]):
+        got = native.lsap_solve(prepared[i][valid_np[i]])
+        _check(f"host lsa problem {i}", np.array_equal(got, k5[i][valid_np[i]]),
+               f"{got.tolist()} vs {k5[i][valid_np[i]].tolist()}")
+        rows += len(got)
+    return {"problems": int(costs.shape[0]), "rows": rows, "equal": True}
+
+
+def run_tools(dev):
+    """Phase 11: the tools.  Export (``video_r50_1x`` frame mode over 8
+    frames loaded in a fresh process, image and clip modes, ``video_swinl``
+    frame mode), FLOPs, the parity runbook on phase 8's split with phase
+    10's ``.pth``, and the host LSA solver."""
+    import os
+
+    kernels = _kernels()
+    work = _eval_dir()
+    info, launches = {}, {n: 0 for n in kernels}
+    for key, fn in (
+            ("export_frame", lambda: _export_frame_path(
+                "r50 artifact", "video_r50_1x", PER_FRAME, EXPORT_FRAMES, dev, work, True)),
+            ("export_image_clip", lambda: _export_stateless(dev, work)),
+            ("export_swinl", lambda: _export_frame_path(
+                "swinl artifact", "video_swinl", SWIN_PER_FRAME, SWIN_EXPORT_FRAMES, dev, work,
+                False))):
+        part, info[key] = fn()
+        print(f"[11 {key}] {json.dumps(info[key])}", flush=True)
+        launches = {n: launches[n] + part[n] for n in kernels}
+        for name in os.listdir(work):
+            if name.endswith((".pt2", "_inputs.pt")):
+                os.remove(os.path.join(work, name))
+    for key, fn in (("flops", lambda: _flops(dev)), ("parity", lambda: _parity(work)),
+                    ("host_lsa", lambda: _host_lsa(dev))):
+        info[key] = fn()
+        print(f"[11 {key}] {json.dumps(info[key])}", flush=True)
     return launches, info
 
 

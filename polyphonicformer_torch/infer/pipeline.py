@@ -286,15 +286,19 @@ def make_clip_step(model: PolyphonicFormer, cfg, out_hw, compute_dtype=torch.flo
                              fusion_dtype=fusion_dtype)
 
 
+@torch.no_grad()
+def image_step(model: PolyphonicFormer, cfg, image: torch.Tensor, out_hw: Tuple[int, int],
+               compute_dtype=torch.float32, fusion_dtype=torch.float32) -> PanopticResult:
+    """Image-mode inference of image (1, H, W, 3): the PanopticResult with
+    the maps."""
+    _, _, heads = _heads(model, image, compute_dtype)
+    return _fuse(cfg, heads, 0, tuple(out_hw), fusion_dtype,
+                 emit_marginals=fusion_dtype != torch.float32)
+
+
 def make_image_step(model: PolyphonicFormer, cfg, out_hw, compute_dtype=torch.float32,
                     fusion_dtype=torch.float32):
     """Image-mode inference, step(image) -> PanopticResult with the maps."""
-    model = cast_model(model, compute_dtype)
-    kernel_path = fusion_dtype != torch.float32
-
-    @torch.no_grad()
-    def step(image: torch.Tensor) -> PanopticResult:
-        _, _, heads = _heads(model, image, compute_dtype)
-        return _fuse(cfg, heads, 0, tuple(out_hw), fusion_dtype, emit_marginals=kernel_path)
-
-    return step
+    return functools.partial(image_step, cast_model(model, compute_dtype), cfg,
+                             out_hw=tuple(out_hw), compute_dtype=compute_dtype,
+                             fusion_dtype=fusion_dtype)

@@ -20,7 +20,6 @@ metadata of tensor parallelism (``partition=True``).
 """
 from __future__ import annotations
 
-import functools
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -29,6 +28,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..ops.cuda.window_attn import window_attention, window_attn_math
+from ..ops.device_tables import device_table
 
 _K8_MAX_HEADS = 12  # JAX swin.py SwinBlock: the fused image-layout kernel up to 12 heads
 
@@ -69,14 +69,13 @@ def _shift_attn_mask(h: int, w: int, ws: int, shift: int) -> np.ndarray:
     return attn.astype(np.float32)
 
 
-# Constants copied to the device once per shape: a copy from host memory
-# would stall the stream on every call.
-@functools.lru_cache(maxsize=16)
+# Constants copied to the device once per shape (ops/device_tables.py).
+@device_table(maxsize=16)
 def _index_on(ws: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_relative_position_index(ws).reshape(-1).astype(np.int64)).to(device)
 
 
-@functools.lru_cache(maxsize=64)
+@device_table(maxsize=64)
 def _mask_on(h: int, w: int, ws: int, shift: int, device: torch.device) -> torch.Tensor:
     """The shift mask in f32.  JAX builds it in the compute dtype on the K7
     branch and upcasts it; its values, 0 and -100, are exact in bf16."""

@@ -10,7 +10,8 @@ touches neither ``nvcc`` nor the card.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :meth:`Kernel.launch` raises when that is not 0 and
-otherwise adds one to the kernel's launch count.
+otherwise adds one to the kernel's launch count.  Each wrapper module
+defines its kernel entries as ``poly::`` custom ops (:func:`define_op`).
 """
 from __future__ import annotations
 
@@ -122,6 +123,21 @@ class Kernel:
         if err != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {err} at launch")
         self.launches += 1
+
+
+def define_op(name: str, schema: str, cpu, cuda, fake):
+    """Define the custom op ``poly::<name>`` with ``schema``: ``cpu`` (the
+    plain version) runs for CPU tensors, ``cuda`` (the kernel) for CUDA
+    tensors and ``fake`` gives the output shapes to tracers.  The
+    registrations go straight to the dispatcher's CPU, CUDA and Meta keys,
+    with no autograd kernel: a gradient stays in the caller's
+    ``torch.autograd.Function``.  Returns the op."""
+    qualname = f"poly::{name}"
+    torch.library.define(qualname, schema)
+    torch.library.impl(qualname, "cpu")(cpu)
+    torch.library.impl(qualname, "cuda")(cuda)
+    torch.library.register_fake(qualname)(fake)
+    return getattr(torch.ops.poly, name).default
 
 
 def check_cuda(name: str, t: torch.Tensor, dtypes, ndim: int | None = None,

@@ -10,7 +10,8 @@ transposed view needs no copy, and prepares each cost as it reads it; it
 is launched as :func:`launch_plan` says.  Its plain version, :func:`solve_lsa_plain`,
 is the same preparation and the lax solver of
 ``polyphonicformer_tpu/ops/hungarian.py::solve_lsa`` written with torch
-ops, one problem at a time, with the loop conditions read on the host.
+ops, one problem at a time, with the loop conditions read on the host.  The
+entry is the custom op ``poly::solve_lsa``.
 """
 from __future__ import annotations
 
@@ -134,13 +135,15 @@ def _solve_lsa_cuda(costs: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return out
 
 
+solve_lsa_op = _lib.define_op(
+    "solve_lsa", "(Tensor costs, Tensor valid) -> Tensor",
+    cpu=solve_lsa_plain, cuda=lambda *args: _solve_lsa_cuda(*args),
+    fake=lambda costs, valid: valid.new_empty(valid.shape, dtype=torch.int32))
+
+
 def solve_lsa(costs: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Batched exact LSA on raw costs: (N, G, P) f32 of any strides, (N, G)
     bool -> (N, G) int32.  A CUDA tensor launches the kernel, which
     prepares the costs as it reads them; a CPU tensor takes the plain
     version."""
-    if costs.is_cuda:
-        return _solve_lsa_cuda(costs, valid)
-    if costs.device.type == "cpu":
-        return solve_lsa_plain(costs, valid)
-    raise ValueError(f"solve_lsa: unsupported device {costs.device}")
+    return solve_lsa_op(costs, valid)

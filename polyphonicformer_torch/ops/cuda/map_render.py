@@ -5,7 +5,8 @@ Replaces ``polyphonicformer_tpu/ops/pallas/map_render.py::render_maps``.
 The CUDA kernel is ``csrc/map_render.cu``: one thread per pixel with the
 (K,) tables in shared memory, looking the integers up directly (the TPU
 kernel's f32 code packing is gone; the source note there gives the bound).
-A winner outside [0, K), such as the fusion's sentinel, renders void.
+A winner outside [0, K), such as the fusion's sentinel, renders void.  The
+entry is the custom op ``poly::render_maps``.
 """
 from __future__ import annotations
 
@@ -59,6 +60,15 @@ def _render_maps_cuda(pix, depth_sel, depth_basic, labels, seg_ids, keep,
     return sem, pan, dep, trk
 
 
+render_maps_op = _lib.define_op(
+    "render_maps",
+    "(Tensor pix, Tensor depth_sel, Tensor depth_basic, Tensor labels, Tensor seg_ids,"
+    " Tensor keep, Tensor track_ids, int num_classes) -> (Tensor, Tensor, Tensor, Tensor)",
+    cpu=render_maps_plain, cuda=lambda *args: _render_maps_cuda(*args),
+    fake=lambda pix, depth_sel, *_: (torch.empty_like(pix), torch.empty_like(pix),
+                                     torch.empty_like(depth_sel), torch.empty_like(pix)))
+
+
 def render_maps(pix: torch.Tensor, depth_sel: torch.Tensor,
                 depth_basic: torch.Tensor, labels: torch.Tensor,
                 seg_ids: torch.Tensor, keep: torch.Tensor,
@@ -71,10 +81,5 @@ def render_maps(pix: torch.Tensor, depth_sel: torch.Tensor,
     gates it).  A CUDA tensor launches the kernel; a CPU tensor takes the
     plain version.
     """
-    if pix.is_cuda:
-        return _render_maps_cuda(pix, depth_sel, depth_basic, labels, seg_ids,
-                                 keep, track_ids, num_classes)
-    if pix.device.type == "cpu":
-        return render_maps_plain(pix, depth_sel, depth_basic, labels, seg_ids,
-                                 keep, track_ids, num_classes)
-    raise ValueError(f"render_maps: unsupported device {pix.device}")
+    return render_maps_op(pix, depth_sel, depth_basic, labels, seg_ids, keep, track_ids,
+                          num_classes)

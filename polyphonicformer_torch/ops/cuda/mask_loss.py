@@ -17,7 +17,8 @@ bound and design); they take any H and W.  :func:`mask_loss_stats` is a
 ``torch.autograd.Function``: a CUDA tensor launches the kernels in both
 directions, a CPU tensor takes the plain versions, which compute the same
 sums with torch ops and write out the same gradient formulas; either way
-the forward's ``lse`` is saved for the backward.
+the forward's ``lse`` is saved for the backward.  The entries are the
+custom ops ``poly::mask_loss_stats`` and ``poly::mask_loss_grad``.
 """
 from __future__ import annotations
 
@@ -167,15 +168,29 @@ def _grad_cuda(m, t, pos, valid, lbl, gstats, gdice, lse):
     return dm
 
 
+def _stats_fake(m, t, pos, valid, lbl):
+    n, q, h, w = m.shape
+    return m.new_empty((n, 2)), m.new_empty((n, 3, q)), m.new_empty((n, h, w))
+
+
+# (stats, dice, lse)
+mask_loss_stats_op = _lib.define_op(
+    "mask_loss_stats",
+    "(Tensor m, Tensor t, Tensor pos, Tensor valid, Tensor lbl) -> (Tensor, Tensor, Tensor)",
+    cpu=mask_loss_stats_plain, cuda=lambda *args: _stats_cuda(*args), fake=_stats_fake)
+# d/dm from the forward's lse
+mask_loss_grad_op = _lib.define_op(
+    "mask_loss_grad",
+    "(Tensor m, Tensor t, Tensor pos, Tensor valid, Tensor lbl, Tensor gstats, Tensor gdice,"
+    " Tensor lse) -> Tensor",
+    cpu=mask_loss_grad_plain, cuda=lambda *args: _grad_cuda(*args),
+    fake=lambda m, *_: torch.empty_like(m))
+
+
 class _MaskLossStats(torch.autograd.Function):
     @staticmethod
     def forward(ctx, m, t, pos, valid, lbl):
-        if m.is_cuda:
-            stats, dice, lse = _stats_cuda(m, t, pos, valid, lbl)
-        elif m.device.type == "cpu":
-            stats, dice, lse = mask_loss_stats_plain(m, t, pos, valid, lbl)
-        else:
-            raise ValueError(f"mask_loss_stats: unsupported device {m.device}")
+        stats, dice, lse = mask_loss_stats_op(m, t, pos, valid, lbl)
         ctx.save_for_backward(m, t, pos, valid, lbl, lse)
         return stats, dice
 
@@ -186,8 +201,8 @@ class _MaskLossStats(torch.autograd.Function):
             else gstats.contiguous()
         gdice = torch.zeros((m.shape[0], 3, m.shape[1]), device=m.device) if gdice is None \
             else gdice.contiguous()
-        fn = _grad_cuda if m.is_cuda else mask_loss_grad_plain
-        return fn(m, t, pos, valid, lbl, gstats, gdice, lse), None, None, None, None
+        return (mask_loss_grad_op(m, t, pos, valid, lbl, gstats, gdice, lse),
+                None, None, None, None)
 
 
 def mask_loss_stats(m: torch.Tensor, t: torch.Tensor, pos: torch.Tensor,

@@ -12,7 +12,8 @@ grid it is launched with, kept in Python so that the CPU tests check it.
 VJP (``mask_pool.py::_bwd``): zero gradient to the logits (a hard
 threshold) and ``hard^T @ g`` to the features, in their dtype.  In the JAX
 package that product is an XLA einsum outside any Pallas kernel; here it is
-``torch.matmul``.
+``torch.matmul``.  The kernel entry is the custom op ``poly::mask_pool``
+(:data:`mask_pool_op`).
 """
 from __future__ import annotations
 
@@ -146,17 +147,20 @@ def _mask_pool_cuda(mask_logits: torch.Tensor, feats: torch.Tensor,
     return out
 
 
+mask_pool_op = _lib.define_op(
+    "mask_pool", "(Tensor mask_logits, Tensor feats, float thr) -> Tensor",
+    cpu=mask_pool_plain, cuda=lambda *args: _mask_pool_cuda(*args),
+    fake=lambda mask_logits, feats, thr: feats.new_empty(
+        (*mask_logits.shape[:2], feats.shape[-1]), dtype=torch.float32))
+
+
 class _MaskedPool(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mask_logits: torch.Tensor, feats: torch.Tensor,
                 thr: float) -> torch.Tensor:
         ctx.save_for_backward(mask_logits)
         ctx.thr, ctx.feats_dtype = thr, feats.dtype
-        if mask_logits.is_cuda:
-            return _mask_pool_cuda(mask_logits, feats, thr)
-        if mask_logits.device.type == "cpu":
-            return mask_pool_plain(mask_logits, feats, thr)
-        raise ValueError(f"masked_pool: unsupported device {mask_logits.device}")
+        return mask_pool_op(mask_logits, feats, thr)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):

@@ -13,7 +13,8 @@ gives the bound and design), launched as :func:`launch_plan` says.
 
 Both versions store the maps in bf16, pad K to a multiple of 8 (the plain
 version with rows of zeros, ``_prep``; the kernel reads the rows past K as
-zeros), take f32 scores (not bf16) and lerp rows first, then columns.
+zeros), take f32 scores (not bf16) and lerp rows first, then columns.  The
+entry is the custom op ``poly::phase_fusion`` (:data:`phase_fusion_op`).
 """
 from __future__ import annotations
 
@@ -180,14 +181,44 @@ def _phase_fusion_cuda(probs, scores, depth, fy, fx, n_full):
     pix = torch.empty((h, w), dtype=torch.int32, device=dev)
     dep = torch.empty((h, w), dtype=torch.float32, device=dev)
     counts = torch.zeros((kf * (h + w + 1),), dtype=torch.float32, device=dev)  # one memset
-    rowm = counts[:kf * h].view(kf, h)
-    colm = counts[kf * h:kf * (h + w)].view(kf, w)
-    oarea = counts[kf * (h + w):]
+    rowm, colm, oarea = _split_counts(counts, kf, h, w)
     vec = ws % 8 == 0 and m.data_ptr() % 16 == 0
     KERNEL.launch(m.data_ptr(), d.data_ptr(), s.data_ptr(), kk, kpad, nf, kf, hs, ws,
                   fy, fx, pix.data_ptr(), dep.data_ptr(), rowm.data_ptr(), colm.data_ptr(), oarea.data_ptr(),
                   *plan.grid, plan.smem, int(vec))
-    return pix, dep, rowm, colm, oarea
+    return pix, dep, counts
+
+
+def _split_counts(counts: torch.Tensor, kf: int, h: int, w: int):
+    """Views of the one counts buffer: row_marg (kf, H), col_marg (kf, W),
+    oarea (kf,)."""
+    return (counts[:kf * h].view(kf, h), counts[kf * h:kf * (h + w)].view(kf, w),
+            counts[kf * (h + w):])
+
+
+def _phase_fusion_cpu(probs, scores, depth, fy, fx, n_full):
+    pix, dep, rowm, colm, oarea = phase_fusion_plain(probs, scores, depth, fy, fx, n_full)
+    return pix, dep, torch.cat([rowm.flatten(), colm.flatten(), oarea])
+
+
+def _phase_fusion_fake(probs, scores, depth, fy, fx, n_full):
+    kk, hs, ws = probs.shape
+    kf = _rows(kk, n_full)[2]
+    h, w = hs * fy, ws * fx
+    return (probs.new_empty((h, w), dtype=torch.int32),
+            probs.new_empty((h, w), dtype=torch.float32),
+            probs.new_empty((kf * (h + w + 1),), dtype=torch.float32))
+
+
+# ``pix``, ``dep`` and one buffer of the row marginals, column marginals and
+# areas in turn: the outputs of a custom op may not share memory, so
+# :func:`phase_fusion` takes the views
+phase_fusion_op = _lib.define_op(
+    "phase_fusion",
+    "(Tensor probs, Tensor scores, Tensor depth, int fy, int fx, int? n_full)"
+    " -> (Tensor, Tensor, Tensor)",
+    cpu=_phase_fusion_cpu, cuda=lambda *args: _phase_fusion_cuda(*args),
+    fake=_phase_fusion_fake)
 
 
 def phase_fusion(probs: torch.Tensor, scores: torch.Tensor, depth: torch.Tensor,
@@ -200,8 +231,6 @@ def phase_fusion(probs: torch.Tensor, scores: torch.Tensor, depth: torch.Tensor,
     ``kf = min(nf, K)``.  A CUDA tensor launches the kernel; a CPU tensor
     takes the plain version.
     """
-    if probs.is_cuda:
-        return _phase_fusion_cuda(probs, scores, depth, fy, fx, n_full)
-    if probs.device.type == "cpu":
-        return phase_fusion_plain(probs, scores, depth, fy, fx, n_full)
-    raise ValueError(f"phase_fusion: unsupported device {probs.device}")
+    pix, dep, counts = phase_fusion_op(probs, scores, depth, fy, fx, n_full)
+    kf = _rows(probs.shape[0], n_full)[2]
+    return (pix, dep, *_split_counts(counts, kf, *pix.shape))

@@ -13,7 +13,8 @@ per thread, each gradient row loaded and column-passed once, the same
 weights, factors 2 and 4 specialised and a generic kernel for the others;
 the source notes there give the bound and design).  :func:`upsample_int` is a
 ``torch.autograd.Function``: a CUDA tensor launches the kernels in both
-directions, a CPU tensor takes the plain versions in both.
+directions, a CPU tensor takes the plain versions in both, through the
+custom ops ``poly::upsample_int`` and ``poly::upsample_int_bwd``.
 """
 from __future__ import annotations
 
@@ -145,26 +146,28 @@ def _upsample_int_bwd_cuda(g: torch.Tensor, fy: int, fx: int) -> torch.Tensor:
     return dx
 
 
-def _on(x: torch.Tensor, cuda_fn, plain_fn, *args):
-    """A CUDA tensor launches the kernel; a CPU tensor takes the plain version."""
-    if x.is_cuda:
-        return cuda_fn(x, *args)
-    if x.device.type == "cpu":
-        return plain_fn(x, *args)
-    raise ValueError(f"upsample_int: unsupported device {x.device}")
+upsample_int_op = _lib.define_op(
+    "upsample_int", "(Tensor x, int fy, int fx) -> Tensor",
+    cpu=upsample_int_plain, cuda=lambda *args: _upsample_int_cuda(*args),
+    fake=lambda x, fy, fx: x.new_empty((x.shape[0], x.shape[1] * fy, x.shape[2] * fx),
+                                       dtype=torch.float32))
+upsample_int_bwd_op = _lib.define_op(
+    "upsample_int_bwd", "(Tensor g, int fy, int fx) -> Tensor",
+    cpu=upsample_int_bwd_plain, cuda=lambda *args: _upsample_int_bwd_cuda(*args),
+    fake=lambda g, fy, fx: g.new_empty((g.shape[0], g.shape[1] // fy, g.shape[2] // fx),
+                                       dtype=torch.float32))
 
 
 class _UpsampleInt(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x: torch.Tensor, fy: int, fx: int) -> torch.Tensor:
         ctx.factors = (fy, fx)
-        return _on(x, _upsample_int_cuda, upsample_int_plain, fy, fx)
+        return upsample_int_op(x, fy, fx)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         fy, fx = ctx.factors
-        return _on(g.contiguous(), _upsample_int_bwd_cuda, upsample_int_bwd_plain,
-                   fy, fx), None, None
+        return upsample_int_bwd_op(g.contiguous(), fy, fx), None, None
 
 
 def upsample_int(x: torch.Tensor, fy: int, fx: int | None = None) -> torch.Tensor:

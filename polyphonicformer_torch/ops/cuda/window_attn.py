@@ -19,7 +19,9 @@ Each entry point is a ``torch.autograd.Function`` on either device: the
 forward is the kernel (or the plain version), the backward the VJP of the
 plain version recomputed from the saved inputs, as the JAX package's
 custom VJPs differentiate their jnp formulations (``_wam_bwd``,
-``_wa_bwd``).  So no backward kernel exists, and none is needed.
+``_wa_bwd``).  So no backward kernel exists, and none is needed.  The
+forwards are the custom ops ``poly::window_attn_math`` and
+``poly::window_attention``.
 """
 from __future__ import annotations
 
@@ -164,8 +166,6 @@ def _plan_args(qkv, nwin: int, num_heads: int, c: int, l: int, masked: bool) -> 
 
 
 def _window_attn_math_fwd(qkv, bias, mask, num_heads: int) -> torch.Tensor:
-    if qkv.device.type == "cpu":
-        return window_attn_math_plain(qkv, bias, mask, num_heads)
     if qkv.dim() != 3:
         raise ValueError(f"qkv: expected (nw, L, 3C), got {tuple(qkv.shape)}")
     nw, l, _ = qkv.shape
@@ -179,8 +179,6 @@ def _window_attn_math_fwd(qkv, bias, mask, num_heads: int) -> torch.Tensor:
 
 
 def _window_attention_fwd(qkv, bias, mask, num_heads: int, ws: int) -> torch.Tensor:
-    if qkv.device.type == "cpu":
-        return window_attention_plain(qkv, bias, mask, num_heads, ws)
     if qkv.dim() != 4:
         raise ValueError(f"qkv: expected (B, Hp, Wp, 3C), got {tuple(qkv.shape)}")
     b, hp, wp, _ = qkv.shape
@@ -208,12 +206,27 @@ def _plain_vjp(plain, inputs, needs, g: torch.Tensor) -> tuple:
     return tuple(next(grads) if need else None for need in needs)
 
 
+def _window_fake(qkv, *_):
+    return qkv.new_empty((*qkv.shape[:-1], qkv.shape[-1] // 3))
+
+
+window_attn_math_op = _lib.define_op(
+    "window_attn_math", "(Tensor qkv, Tensor bias, Tensor? mask, int num_heads) -> Tensor",
+    cpu=window_attn_math_plain, cuda=lambda *args: _window_attn_math_fwd(*args),
+    fake=_window_fake)
+window_attention_op = _lib.define_op(
+    "window_attention",
+    "(Tensor qkv, Tensor bias, Tensor? mask, int num_heads, int ws) -> Tensor",
+    cpu=window_attention_plain, cuda=lambda *args: _window_attention_fwd(*args),
+    fake=_window_fake)
+
+
 class _WindowAttnMath(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, bias, mask, num_heads: int):
         ctx.save_for_backward(qkv, bias, mask)
         ctx.num_heads = num_heads
-        return _window_attn_math_fwd(qkv, bias, mask, num_heads)
+        return window_attn_math_op(qkv, bias, mask, num_heads)
 
     @staticmethod
     def backward(ctx, g):
@@ -227,7 +240,7 @@ class _WindowAttention(torch.autograd.Function):
     def forward(ctx, qkv, bias, mask, num_heads: int, ws: int):
         ctx.save_for_backward(qkv, bias, mask)
         ctx.shape = (num_heads, ws)
-        return _window_attention_fwd(qkv, bias, mask, num_heads, ws)
+        return window_attention_op(qkv, bias, mask, num_heads, ws)
 
     @staticmethod
     def backward(ctx, g):

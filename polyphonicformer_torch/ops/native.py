@@ -1,6 +1,7 @@
-"""The port's native host library: the VPQ statistics core (a copy of the
-JAX package's ``native/vpq_core.cpp``), the PNG scanline unfilter and
-cv2's fixed-point bilinear resize of uint8 images, all in
+"""The port's native host library: the VPQ statistics core and the
+Jonker-Volgenant assignment solver (copies of the JAX package's
+``native/vpq_core.cpp`` and ``native/lsap.cpp``), the PNG scanline unfilter
+and cv2's fixed-point bilinear resize of uint8 images, all in
 ``polyphonicformer_torch/native/``.
 
 The sources compile with one ``g++ -O3`` the first time a function here is
@@ -10,7 +11,8 @@ build writes a temporary file and renames it into place, so processes that
 build at once (test workers, decode workers) never load a partial file.
 There is no fallback: a library that does not build or load raises.  The
 Python VPQ of ``evalutils/vpq.py`` is the plain version the tests hold this
-one to, ``data/png.py::unfilter_plain`` the unfilter's and
+one to, ``scipy.optimize.linear_sum_assignment`` and K5's plain solver the
+assignment's, ``data/png.py::unfilter_plain`` the unfilter's and
 ``data/resize.py::resize_linear_u8_plain`` the resize's.  Importing this
 module builds nothing and imports no ``torch``.
 """
@@ -73,6 +75,8 @@ def load() -> ctypes.CDLL:
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
         lib.vpq_stats.restype = _I32
+        lib.lsap_solve.restype = _I32
+        lib.lsap_solve.argtypes = [_P, _I32, _I32, _P]
         lib.vpq_stats.argtypes = [_P, _P, _I64, _I32, _I64, _I64, _P, _P, _P, _P]
         lib.png_unfilter.restype = _I64
         lib.png_unfilter.argtypes = [_P, _P, _I64, _I64, _I32]
@@ -84,6 +88,21 @@ def load() -> ctypes.CDLL:
 
 def _ptr(a: np.ndarray) -> int:
     return a.ctypes.data
+
+
+def lsap_solve(cost: np.ndarray) -> np.ndarray:
+    """Exact rectangular linear-sum assignment of an (n_rows, n_cols) cost,
+    n_rows <= n_cols: row2col (n_rows,) int32, every row a distinct column
+    of least total cost."""
+    cost = np.ascontiguousarray(cost, np.float32)
+    if cost.ndim != 2 or not 0 < cost.shape[0] <= cost.shape[1]:
+        raise ValueError(f"lsap_solve: need rows <= cols, got shape {cost.shape}")
+    n_rows, n_cols = cost.shape
+    out = np.empty((n_rows,), np.int32)
+    rc = load().lsap_solve(_ptr(cost), n_rows, n_cols, _ptr(out))
+    if rc != 0:
+        raise RuntimeError(f"lsap_solve failed rc={rc}")
+    return out
 
 
 def vpq_stats(pred: np.ndarray, gt: np.ndarray, num_classes: int = 19,

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .cuda.upsample2 import upsample_int
+from .device_tables import device_table
 
 
 @functools.lru_cache(maxsize=64)
@@ -32,7 +33,7 @@ def _bilinear_matrix(in_size: int, out_size: int) -> np.ndarray:
     return mat
 
 
-@functools.lru_cache(maxsize=64)
+@device_table(maxsize=64)
 def _matrix(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
     """The matrix on ``device``, copied there once (a copy from host memory
     would stall the stream on every call)."""

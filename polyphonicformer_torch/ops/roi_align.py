@@ -12,17 +12,17 @@ counts of the binarised x4 upsample computed at stride 4
 """
 from __future__ import annotations
 
-import functools
 from typing import Sequence
 
 import numpy as np
 import torch
 from torch.nn import functional as F
 
+from .device_tables import device_table
 from .resize import _bilinear_matrix
 
 
-@functools.lru_cache(maxsize=64)
+@device_table(maxsize=64)
 def _device_const(values: tuple, device: torch.device) -> torch.Tensor:
     """A small per-level table on ``device``, copied there once (a copy from
     host memory would stall the stream on every call)."""
@@ -196,7 +196,7 @@ def masks_to_boxes_mad(masks: torch.Tensor, extend: float = 2.0) -> torch.Tensor
     return boxes_mad_from_marginals(rowcount, colcount, extend)
 
 
-@functools.lru_cache(maxsize=16)
+@device_table(maxsize=16)
 def _support_tables(in_size: int, out_size: int, device: torch.device):
     """Tables for the exact counts of a binarised bilinear upsample, on
     ``device`` (copied once).  The align_corners=False matrix A (out, in)

@@ -37,10 +37,14 @@ limit:
   step's four x2 gradients and at two x4 gradients (``K2B_SHAPES``):
   bit-equal to the plain version, device ms (CUDA events, median of 20)
   beside ``aten.upsample_bilinear2d_backward`` and the byte bound;
-* ``wrapper_host``: host microseconds a call of the K7 and K8 wrappers
-  takes under ``torch.no_grad`` (as serving calls them) at the Swin-L
-  stage-2 and stage-0 shapes, bf16, with the card kept busy so that no
-  call waits for it: the median and least over 11 rounds of 100 calls;
+* ``wrapper_host``: host microseconds a call of the K1-K4, K7 and K8
+  wrappers takes under ``torch.no_grad`` (as serving calls them) at the
+  R50 serving frame's shapes (K1 bf16 (1, 111) logits of 128x256 with the
+  NHWC view of the (1, 256, 128, 256) features, K2 (111, 128, 256) x2, K3
+  111 bf16 candidates of 256x512 with 64 full rows x4, K4 1024x2048 with
+  111 table rows) and the Swin-L stage-2 and stage-0 shapes, bf16, with
+  the card kept busy so that no call waits for it: the median and least
+  over 11 rounds of 100 calls;
 * ``k3_atomics``: the global atomics one K3 call issues at the serving
   shape (111 x (256, 512) bf16, 64 full rows, x4), counted from its winners:
   one per nonzero (candidate, row) and (candidate, column) of each block
@@ -154,7 +158,8 @@ def k2b(dev) -> dict:
 def wrapper_host(dev) -> dict:
     import torch
 
-    from polyphonicformer_torch.ops.cuda import window_attn
+    from polyphonicformer_torch.ops.cuda import (map_render, mask_pool, phase_fusion, upsample2,
+                                                 window_attn)
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -167,7 +172,24 @@ def wrapper_host(dev) -> dict:
 
     q7, b7, m7 = inputs((190, 49, 2304), 24, 190)
     q8, b8, m8 = inputs((1, 259, 518, 576), 6, 2738)
-    calls = {"window_attn_math": lambda: window_attn.window_attn_math(q7, b7, m7, 24),
+    bf16 = torch.bfloat16
+    logits = torch.randn((1, 111, 128, 256), generator=gen, device=dev).to(bf16)
+    feats = torch.randn((1, 256, 128, 256), generator=gen, device=dev).to(bf16).permute(0, 2, 3, 1)
+    maps = torch.randn((111, 128, 256), generator=gen, device=dev)
+    probs = torch.rand((111, 256, 512), generator=gen, device=dev).to(bf16)
+    depth = torch.rand((111, 256, 512), generator=gen, device=dev).to(bf16)
+    scores = torch.rand((111,), generator=gen, device=dev)
+    pix = torch.randint(-1, 112, (1024, 2048), generator=gen, device=dev, dtype=torch.int32)
+    dsel, dbas = (torch.rand((1024, 2048), generator=gen, device=dev) for _ in range(2))
+    tables = [torch.randint(0, 19, (111,), generator=gen, device=dev, dtype=torch.int32)
+              for _ in range(4)]
+    tables[2] = tables[2] > 9
+    calls = {"mask_pool": lambda: mask_pool.masked_pool(logits, feats),
+             "upsample2": lambda: upsample2.upsample_int(maps, 2),
+             "phase_fusion": lambda: phase_fusion.phase_fusion(probs, scores, depth, 4, 4,
+                                                               n_full=64),
+             "map_render": lambda: map_render.render_maps(pix, dsel, dbas, *tables, 19),
+             "window_attn_math": lambda: window_attn.window_attn_math(q7, b7, m7, 24),
              "window_attention": lambda: window_attn.window_attention(q8, b8, m8, 6, 7)}
     out = {}
     with torch.no_grad():

@@ -159,7 +159,8 @@ def test_import_leaves_jax_out():
     (nor flax or optax) nor anything of the JAX package, nor cv2 or PIL:
     the machine with the card has none of them."""
     new = ["tools.convert_torch_ckpt", "data.label_shift", "models.aspp", "models.stdc",
-           "models.aligned_fpn", "ops.grid_sample", "ops.deform_conv"]
+           "models.aligned_fpn", "ops.grid_sample", "ops.deform_conv", "tools.export",
+           "tools.flops", "tools.parity_check", "utils.profiling", "ops.device_tables"]
     code = ("import importlib, pkgutil, sys, polyphonicformer_torch as p; "
             "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]; "
             f"missing = [m for m in {new!r} if 'polyphonicformer_torch.' + m not in mods]; "
