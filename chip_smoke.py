@@ -80,7 +80,19 @@ phase 10's ``.pth`` (the measured values equal phase 8's, the gates at those
 values exit 0, one moved beyond its tolerance exits 1) and the host solver
 ``ops/native.py::lsap_solve`` on phase 3's K5 problems (K5's assignments).
 Every kernel entry is a ``poly::`` custom op, so phase 3 holds the ops.
-Phases 4 to 11 each count the kernel launches of their own run.  Any failed phase raises,
+Phase 12 runs the distributed layer on the one card (``run_dist``): (a)
+``tools/launch.py --nproc 1`` of ``tools/dist_check.py`` over NCCL; then
+``tools/launch.py --nproc 2`` of this script's ``dist-rank`` entry, 2 gloo
+ranks sharing the card, each running (b) data-parallel ``video_r50_1x`` f32
+training at 1024x2048, local batch 1 (parameters bit-identical across the
+ranks after each step, held to the one-process batch-2 step), (c) 2 bf16
+clips served a clip a rank (each rank bit-equal to its clip alone), (d)
+tensor-parallel ``video_swinl`` bf16 over (data 1, model 2), K7/K8 on each
+rank's heads (a frame and a video train step against the one-card ones),
+(e) the sharded eval hook on phase 8's split and the training CLI on phase
+9's split, 2 steps and a resume; phase 3 holds K7/K8 at the local head
+counts of (d) too.
+Phases 4 to 12 each count the kernel launches of their own run.  Any failed phase raises,
 so the exit code is not 0.  The last lines are the
 card, a JSON object of per-kernel results and the JSON result line
 ``{"ok": true, "device": {...}}``.
@@ -430,10 +442,15 @@ def check_swin_kernels(dev, gen) -> list[dict]:
 
     k8 = "polyphonicformer_tpu/ops/pallas/window_attn.py:84"
     k7 = "polyphonicformer_tpu/ops/pallas/win_attn_math.py:78"
+    # the tensor-parallel rows: a rank's heads of Swin-L over 2 model ranks
+    # (phase 12): stage 0's 3 of 6 (C 96), stage 3's 24 of 48 (C 768)
     return [row("window_attention", "window_attention", k8, 0, 259, 518, 192, 6, True),
             row("window_attention_stage1", "window_attention", k8, 1, 133, 259, 384, 12, True),
             row("window_attn_math", "window_attn_math", k7, 2, 70, 133, 768, 24, False),
-            row("window_attn_math_stage3", "window_attn_math", k7, 3, 35, 70, 1536, 48, False)]
+            row("window_attn_math_stage3", "window_attn_math", k7, 3, 35, 70, 1536, 48, False),
+            row("window_attention_tp_stage0", "window_attention", k8, 0, 259, 518, 96, 3, True),
+            row("window_attn_math_tp_stage3", "window_attn_math", k7, 3, 35, 70, 768, 24,
+                False)]
 
 
 GRAD_RTOL = 1e-5  # K7/K8 gradients: same VJP, sums possibly in another order
@@ -731,6 +748,10 @@ def main() -> int:
     card = _nvidia_smi()
     print(f"[1 device] {card} | torch {torch.__version__} cuda {torch.version.cuda} "
           f"| {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
+    start = time.perf_counter()
+
+    def done(phase: str) -> None:  # seconds since the script's start, at each phase's end
+        print(f"[time] {phase} done at {time.perf_counter() - start:.1f} s", flush=True)
 
     t0 = time.perf_counter()
     _lib.load()
@@ -763,24 +784,40 @@ def main() -> int:
                   f"({r['dijkstra_steps_longest']} Dijkstra steps x {r['warp_argmin_step_us']:.4f}"
                   f" us a warp argmin step), {100 * r['latency_bound_share']:.1f}% of the kernel's "
                   f"time", flush=True)
+    done("phase 3")
 
     serve_launches, slice_info = run_slice(dev)
     print(f"[4 slice] {json.dumps(slice_info)}", flush=True)
+    done("phase 4")
     train_launches, train_info = run_train(dev)
     print(f"[5 train] {json.dumps(train_info)}", flush=True)
+    done("phase 5")
     swin_launches, swin_info = run_swin(dev)
     print(f"[6 swin] {json.dumps(swin_info)}", flush=True)
+    done("phase 6")
     video_launches, video_info = run_video(dev)
     print(f"[7 video] {json.dumps(video_info)}", flush=True)
+    done("phase 7")
     eval_launches, eval_info = run_eval(dev)
     print(f"[8 eval] {json.dumps(eval_info)}", flush=True)
+    done("phase 8")
     try:
         train_cli_launches, train_cli_info = run_train_cli(dev)
         print(f"[9 train_cli] {json.dumps(train_cli_info)}", flush=True)
+        done("phase 9")
         options_launches, _ = run_options(dev)
+        done("phase 10")
         tools_launches, _ = run_tools(dev)
+        done("phase 11")
+        t0 = time.perf_counter()
+        dist_launches, dist_info = run_dist(
+            dev, train_cli_info["small_reference"]["max_metric_rel_err_to_f64"]["card"])
+        dist_info["phase_s"] = time.perf_counter() - t0
+        print(f"[12 dist] {json.dumps(dist_info)}", flush=True)
+        done("phase 12")
     finally:
         shutil.rmtree(_eval_dir(), ignore_errors=True)
+        shutil.rmtree(_train_dir(), ignore_errors=True)
     for r in rows:
         kernel = r.pop("kernel", r["name"])  # rows at several shapes share a kernel
         by_path = {"serve": serve_launches.get(kernel, 0),
@@ -790,7 +827,8 @@ def main() -> int:
                    "eval": eval_launches.get(kernel, 0),
                    "train_cli": train_cli_launches.get(kernel, 0),
                    "options": options_launches.get(kernel, 0),
-                   "tools": tools_launches.get(kernel, 0)}
+                   "tools": tools_launches.get(kernel, 0),
+                   "dist": dist_launches.get(kernel, 0)}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         _check(f"launches {r['name']}", r["launches"] > 0, "never launched on a main path")
@@ -2202,7 +2240,8 @@ def run_train_cli(dev):
                f"{checkpoint.make_manager(run_dir).steps()}, expected {kept}")
     finally:
         runner.evaluate_frames, checkpoint.restore_state = real_eval, real_restore
-        shutil.rmtree(work, ignore_errors=True)
+        # the split and the .pkl stay for phase 12 (main removes them)
+        shutil.rmtree(os.path.join(work, "run"), ignore_errors=True)
 
     walls = [s * 1e3 for s in main_run["step_wall_s"][1:]]
     in_loader = [s * 1e3 for s in main_run["loader_s"][1:]]
@@ -3043,5 +3082,815 @@ def run_tools(dev):
     return launches, info
 
 
+# ---------------------------------------------------------------- phase 12
+DIST_HW = (1024, 2048)  # every leg at full width
+DIST_STEPS = 2  # data-parallel train steps
+DIST_DP_SEEDS = (0, 1)  # the data-parallel leg's batches (a matching flip: seen on both?)
+DIST_SERVE_FRAMES = 3  # frames of each served clip
+DIST_EVAL_FRAMES = 6  # phase 8's frames through the eval hook, 3 a rank
+DIST_CLI_STEPS, DIST_CLI_RESUME = 2, 3  # --max-steps of the CLI run and its resume
+DIST_CLI_WORKERS = 3  # loader workers a rank (2 ranks share the host's 8 cores)
+# the tensor-parallel video_swinl bf16 step against the one-card step: every
+# loss and grad_norm relative (a bf16 rounding is 2^-8 = 3.9e-3; the two
+# steps round different partial sums, a dozen such roundings); the label
+# agreement of one served frame
+TP_RTOL, TP_LABEL_AGREE = 5e-2, 0.98
+# The step run again in f32, at TP_F32_HW, against the one-card f32 step
+# (matchings forced equal): every metric within leg (b)'s tolerance, and
+# each parameter's gradient before the clip within TP_GRAD_RTOL (relative
+# L2).  f32, because bf16 rounding puts two sound steps' gradients about
+# as far apart as a table left unsummed over the model axis; gradients,
+# not the update, because AdamW's first step moves each element by
+# ~lr x sign(g) whatever g's size.  The leg's planted fault (the bias
+# tables' gradients not summed over the model axis) must land above
+# TP_GRAD_RTOL in every table.  On the H100 the bound sits an order of
+# magnitude above the worst sound leaf and below the least faulted table
+# (PERF.md, phase 12).
+TP_F32_HW = (512, 1024)
+TP_GRAD_RTOL = 1e-2
+
+
+def _dist_dir() -> str:
+    import os
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "work_dirs",
+                        "chip_smoke_dist")
+
+
+def _frame_digest(out, index: int) -> str:
+    """sha256 of the maps of clip ``index`` of a batched FrameOutput."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for name in ("semantic", "panoptic", "track_map", "depth", "track_overflow"):
+        t = getattr(out, name)[index].detach().cpu().contiguous().view(-1)
+        h.update(t.view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dist_clips(dev):
+    """(T, 2, H, W, 3) f32: two 3-frame clips of colour blocks (seeds 1, 2)."""
+    import torch
+
+    h, w = DIST_HW
+    return torch.stack([_frames(torch.Generator(device=dev).manual_seed(s), DIST_SERVE_FRAMES,
+                                h, w, 32, dev) for s in (1, 2)], dim=1)
+
+
+def _dist_train_batch(cfg, dev, seed: int):
+    from polyphonicformer_torch.data.synthetic import synthetic_batch
+
+    return synthetic_batch(cfg.model, 2, DIST_HW, two_frame=True, seed=seed, max_instances=24,
+                           device=dev)
+
+
+def _swin_tp_cfg(dtype: str = "bfloat16"):
+    import dataclasses
+
+    from polyphonicformer_torch.configs import preset
+
+    cfg = preset("video_swinl")
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, shard_backbone=True,
+                                                              compute_dtype=dtype))
+
+
+class _CollectiveMeter:
+    """Counts, bytes and seconds of ``parallel.mesh.all_reduce`` (the
+    gradient sum, the loss sums, the tensor-parallel reductions), the
+    device drained before each, so the seconds are the transfer's."""
+
+    def __init__(self):
+        from polyphonicformer_torch.parallel import mesh
+
+        self.mesh, self.real = mesh, mesh.all_reduce
+        self.calls, self.bytes, self.s = 0, 0, 0.0
+        mesh.all_reduce = self
+
+    def __call__(self, t, group):
+        import torch
+
+        if group is not None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self.real(t, group)
+            torch.cuda.synchronize()
+            self.s += time.perf_counter() - t0
+            self.calls += 1
+            self.bytes += t.numel() * t.element_size()
+        return t
+
+    def take(self) -> dict:
+        out = {"calls": self.calls, "bytes": self.bytes, "s": self.s}
+        self.calls, self.bytes, self.s = 0, 0, 0.0
+        return out
+
+
+class _Matchings:
+    """Inside: every train step's own matchings (``train/losses.py::assign``;
+    pred2gt and gt2pred of the rpn and of each stage) go to ``own``, a step
+    at a time; with ``forced`` (a step's list of the one-process batch-2
+    step's (pred2gt, gt2pred)) its rows ``rows`` take their place, so a
+    matching that f32 rounding flips between near-equal costs moves no
+    loss."""
+
+    def __init__(self, forced=None, rows=slice(None)):
+        from polyphonicformer_torch.train import losses
+
+        self.losses, self.real = losses, losses.assign
+        self.forced, self.rows, self.own = forced, rows, []
+
+    def __enter__(self):
+        self.losses.assign = self
+        return self
+
+    def __exit__(self, *exc):
+        self.losses.assign = self.real
+
+    def __call__(self, cfg, out, gt):
+        asg = self.real(cfg, out, gt)
+        self.own.append([(a.pred2gt.clone(), a.gt2pred.clone()) for a in asg.assigns])
+        if self.forced is None:
+            return asg
+        want = self.forced[len(self.own) - 1]
+        return asg._replace(assigns=[
+            type(a)(p[self.rows].to(a.pred2gt.device), g[self.rows].to(a.gt2pred.device))
+            for a, (p, g) in zip(asg.assigns, want)])
+
+    def lists(self) -> list:
+        """``own`` as lists: [step][rpn, stage 0, ...] = [pred2gt, gt2pred]."""
+        return [[[p.tolist(), g.tolist()] for p, g in st] for st in self.own]
+
+
+def _dp_state(cfg, dev):
+    """``video_r50_1x``'s train state from the weights of seed 0."""
+    import torch
+
+    from polyphonicformer_torch.models import PolyphonicFormer
+    from polyphonicformer_torch.train.step import create_train_state
+
+    with torch.device("meta"):
+        model = PolyphonicFormer(cfg.model)
+    return create_train_state(model, cfg, torch.Generator(device=dev).manual_seed(0),
+                              steps_per_epoch=1000, device=dev)
+
+
+def _cpu_state(model) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def _rank_dp_train(dev, meter, work) -> dict:
+    """Leg (b), a rank: ``video_r50_1x`` f32 at local batch 1 of the global
+    batch 2, DIST_STEPS steps from the seeded weights on the batch of each
+    of DIST_DP_SEEDS, twice: with the step's own matchings, then with the
+    one-process step's in their place (:class:`_Matchings`).  After each
+    step the metrics, the parameters' digest and the step's own matchings;
+    rank 0 keeps each run's final parameters."""
+    import torch
+
+    from polyphonicformer_torch.configs import preset
+    from polyphonicformer_torch.parallel.mesh import local_slice, make_mesh
+    from polyphonicformer_torch.train.checkpoint import state_digest
+    from polyphonicformer_torch.train.step import make_sharded_train_step
+
+    kernels = _kernels()
+    cfg = preset("video_r50_1x")
+    mesh = make_mesh(cfg.parallel, dev)
+    ref = torch.load(f"{work}/dp_matchings.pt")
+    rows = slice(mesh.data_index, mesh.data_index + 1)  # local batch 1
+    runs = {}
+    for seed in DIST_DP_SEEDS:
+        for how in ("own", "forced"):
+            state, opt = _dp_state(cfg, dev)
+            step = make_sharded_train_step(state.model, cfg, opt, mesh, video=True)
+            batch = local_slice(_dist_train_batch(cfg, dev, seed), mesh)
+            steps = []
+            with _Matchings(ref[seed] if how == "forced" else None, rows) as matchings:
+                for _ in range(DIST_STEPS):
+                    for k in kernels.values():
+                        k.launches = 0
+                    meter.take()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, metrics = step(state, batch)
+                    torch.cuda.synchronize()
+                    steps.append({"s": time.perf_counter() - t0,
+                                  "metrics": {k: float(v) for k, v in metrics.items()},
+                                  "digest": state_digest(state.model.state_dict()),
+                                  "collectives": meter.take(),
+                                  "launches": _count_launches(kernels, PER_STEP, 1,
+                                                              "dist dp train")})
+            for st, own in zip(steps, matchings.lists()):
+                st["matchings"] = own
+            runs[f"seed{seed}_{how}"] = steps
+            if mesh.rank == 0:
+                torch.save(_cpu_state(state.model), f"{work}/dp_params_seed{seed}_{how}.pt")
+            grad_bytes = 4 * sum(p.numel() for p in opt.params)
+            del state, opt, step, batch
+    launches = {n: sum(st["launches"][n] for steps in runs.values() for st in steps)
+                for n in kernels}
+    return {"runs": runs, "launches": launches, "grad_bytes": grad_bytes}
+
+
+def _rank_dp_serve(dev, meter, work) -> dict:
+    """Leg (c), a rank: its clip of two through the sharded batched step,
+    bf16; each frame's digest; rank 0 keeps the gathered maps."""
+    import torch
+
+    from polyphonicformer_torch.configs import ParallelConfig
+    from polyphonicformer_torch.infer.pipeline import (gather_frame_outputs,
+                                                       init_batched_tracker_states,
+                                                       make_sharded_batched_video_step)
+    from polyphonicformer_torch.parallel.mesh import make_mesh
+
+    kernels = _kernels()
+    mesh = make_mesh(ParallelConfig(), dev)
+    cfg, model, _ = _serving_model("video_r50_1x", dev)
+    bf16 = torch.bfloat16
+    step = make_sharded_batched_video_step(model, cfg, DIST_HW, mesh, bf16, bf16)
+    clips, states = _dist_clips(dev), init_batched_tracker_states(cfg, 1, dev)
+    for k in kernels.values():
+        k.launches = 0
+    digests, gathered, walls = [], [], []
+    for t in range(DIST_SERVE_FRAMES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, states = step(clips[t], states, torch.tensor([t + 1, t + 11]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        digests.append(_frame_digest(out, 0))
+        full = gather_frame_outputs(out, mesh)
+        gathered.append({n: getattr(full, n).cpu() for n in ("semantic", "track_map", "depth")})
+    launches = _count_launches(kernels, PER_FRAME, DIST_SERVE_FRAMES, "dist serving")
+    if mesh.rank == 0:
+        torch.save(gathered, f"{work}/served.pt")
+    return {"digests": digests, "frame_s": walls, "launches": launches,
+            "num_tracklets": int(states.num_tracklets[0])}
+
+
+def _rank_tp_swin(dev, meter, work) -> dict:
+    """Leg (d), a rank: ``video_swinl`` bf16 over (data 1, model 2), one
+    served frame on the initial weights, then one video train step; then
+    the same step in f32 at TP_F32_HW with the one-card f32 step's
+    matchings forced in (:class:`_Matchings`), the rank's shard of its
+    parameters and gradients kept for the parent, and the planted fault
+    (:func:`_tp_fault_grads`) likewise."""
+    import torch
+
+    from polyphonicformer_torch.configs import ParallelConfig
+    from polyphonicformer_torch.infer.pipeline import make_video_step
+    from polyphonicformer_torch.infer.tracker import init_tracker_state
+    from polyphonicformer_torch.parallel.mesh import make_mesh
+    from polyphonicformer_torch.train.step import make_tp_train_setup
+
+    kernels = _kernels()
+    cfg = _swin_tp_cfg()
+    mesh = make_mesh(ParallelConfig(num_model=2), dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state, step, opt = make_tp_train_setup(cfg, mesh, gen, video=True)
+    blk = state.model.backbone.stages[0].blocks[0].attn.w_msa
+    heads = [s.blocks[0].attn.w_msa.local_heads for s in state.model.backbone.stages]
+    bf16 = torch.bfloat16
+    frame = _frames(torch.Generator(device=dev).manual_seed(3), 1, *DIST_HW, 32, dev)
+    serve = make_video_step(state.model, cfg.model, DIST_HW, bf16, bf16)
+    for k in kernels.values():
+        k.launches = 0
+    meter.take()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, _ = serve(frame, init_tracker_state(cfg.model.tracker,
+                                             cfg.model.track_head.embed_channels, dev), 1)
+    torch.cuda.synchronize()
+    frame_s, frame_coll = time.perf_counter() - t0, meter.take()
+    frame_launches = _count_launches(kernels, SWIN_PER_FRAME, 1, "dist tp frame")
+    del serve
+    batch = _dist_swin_batch(cfg, dev)
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    step_s, step_coll = time.perf_counter() - t0, meter.take()
+    step_launches = _count_launches(kernels, SWIN_VIDEO_PER_STEP, 1, "dist tp step")
+    if mesh.rank == 0:
+        torch.save({n: getattr(out, n)[0].cpu() for n in ("semantic", "panoptic")},
+                   f"{work}/tp_frame.pt")
+    del state, step, opt, out, batch
+    torch.cuda.empty_cache()
+
+    # the f32 check of the gradients, then the planted fault
+    cfg32 = _swin_tp_cfg("float32")
+    batch = _dist_swin_batch(cfg32, dev, TP_F32_HW)
+    forced = torch.load(f"{work}/swin32_matchings.pt")
+    t0 = time.perf_counter()
+    state, step32, opt = make_tp_train_setup(cfg32, mesh,
+                                             torch.Generator(device=dev).manual_seed(0),
+                                             video=True)
+    with _Matchings(forced) as matchings:
+        state, metrics32 = step32(state, batch)
+    torch.save({"params": _cpu_state(state.model), "grads": _step_grads(opt, metrics32)},
+               f"{work}/tp_shard{mesh.rank}.pt")
+    f32_s = time.perf_counter() - t0
+    del state, step32, opt
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with _Matchings(forced):
+        torch.save(_tp_fault_grads(cfg32, mesh, batch, dev), f"{work}/tp_fault{mesh.rank}.pt")
+    fault_s = time.perf_counter() - t0
+    return {"local_heads": heads, "qkv_shard": list(blk.qkv.weight.shape),
+            "metrics": {k: float(v) for k, v in metrics.items()}, "step_s": step_s,
+            "frame_s": frame_s, "step_collectives": step_coll, "frame_collectives": frame_coll,
+            "launches": {n: frame_launches[n] + step_launches[n] for n in kernels},
+            "f32_metrics": {k: float(v) for k, v in metrics32.items()},
+            "f32_matchings": matchings.lists()[0], "f32_s": f32_s, "fault_s": fault_s}
+
+
+def _step_grads(opt, metrics) -> dict:
+    """The f32 gradients of the step just taken by parameter name, before
+    its clip (the clip scaled them all by max_norm / grad_norm)."""
+    scale = max(1.0, float(metrics["grad_norm"]) / opt.max_norm)
+    return {opt.names[id(p)]: p.grad.detach().cpu() * scale for p in opt.params}
+
+
+def _tp_fault_grads(cfg, mesh, batch, dev) -> dict:
+    """The planted fault of leg (d): the same step with the bias tables'
+    gradients not summed over the model axis (``param_layout`` marks them
+    sharded), so a table's gradient holds only this rank's heads' part.
+    Returns its gradients; leg (d)'s check of the tables must see it."""
+    import torch
+
+    from polyphonicformer_torch.train import step as step_mod
+    from polyphonicformer_torch.train.step import make_tp_train_setup
+
+    real = step_mod.param_layout
+
+    def layout(model):
+        return {k: "sharded" if v == "partial" else v for k, v in real(model).items()}
+
+    step_mod.param_layout = layout
+    try:
+        state, step, opt = make_tp_train_setup(cfg, mesh,
+                                               torch.Generator(device=dev).manual_seed(0),
+                                               video=True)
+    finally:
+        step_mod.param_layout = real
+    _, metrics = step(state, batch)
+    return _step_grads(opt, metrics)
+
+
+def _eval_hook_cfg():
+    import dataclasses
+    import os
+
+    from polyphonicformer_torch.configs import preset
+
+    cfg = preset("video_r50_1x")
+    return dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, data_root=os.path.join(_eval_dir(), "data")))
+
+
+def _rank_eval_hook(dev, meter, work) -> dict:
+    """Leg (e), a rank: the sharded eval hook over DIST_EVAL_FRAMES of phase
+    8's split (f32, phase 8's seeded weights)."""
+    from polyphonicformer_torch.evalutils.runner import make_eval_hook
+
+    kernels = _kernels()
+    _, model, _ = _serving_model("video_r50_1x", dev)
+    hook = make_eval_hook(_eval_hook_cfg(), lambda: model, max_images=DIST_EVAL_FRAMES,
+                          sharded=True)
+    for k in kernels.values():
+        k.launches = 0
+    metrics = hook(0)
+    launches = _count_launches(kernels, EVAL_F32_PER_FRAME, DIST_EVAL_FRAMES // 2,
+                               "dist eval hook")
+    return {"metrics": metrics, "launches": launches}
+
+
+def _rank_train_cli(dev, meter, work) -> dict:
+    """Leg (e), a rank: ``tools/train.py`` on phase 9's split, a sample a
+    rank a step, DIST_CLI_STEPS steps, then a resume to DIST_CLI_RESUME."""
+    import os
+
+    from polyphonicformer_torch.tools import train
+
+    kernels = _kernels()
+    root = _train_dir()
+    common = ["--preset", "video_r50_1x", "--data-root", os.path.join(root, "data"),
+              "--work-dir", os.path.join(work, "cli"),
+              "--load-from", os.path.join(root, "video_r50_1x_seed0.pkl"),
+              "--loader", "process", "--eval-every-epochs", "0",
+              "--set", "data.batch_size=1", "data.repeat_times=1", "schedule.log_interval=1",
+              f"data.num_workers={DIST_CLI_WORKERS}"]
+    runs = []
+    for steps, extra in ((DIST_CLI_STEPS, []), (DIST_CLI_RESUME, ["--resume"])):
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        out = train.main(common + ["--max-steps", str(steps), *extra])
+        out["cli_wall_s"] = time.perf_counter() - t0
+        out["launches"] = _count_launches(kernels, PER_STEP, out["end_step"] - out["start_step"],
+                                          "dist cli")
+        runs.append({k: out[k] for k in (
+            "start_step", "end_step", "steps_per_epoch", "rank", "world", "metrics_path",
+            "saves", "state_digest", "cli_wall_s", "launches", "step_wall_s")})
+    return {"runs": runs, "launches": {n: sum(r["launches"][n] for r in runs) for n in kernels}}
+
+
+DIST_LEGS = (("dp_train", _rank_dp_train), ("dp_serve", _rank_dp_serve),
+             ("tp_swin", _rank_tp_swin), ("eval_hook", _rank_eval_hook),
+             ("train_cli", _rank_train_cli))
+
+
+def _dist_rank(work: str) -> int:
+    """A rank of phase 12's job (``python -m chip_smoke dist-rank WORK`` under
+    ``tools/launch.py``): every leg in order, each leg's wall and peak
+    memory, into WORK/rank<r>.json.  A failed check raises: the rank exits
+    non-zero and the launcher stops the job."""
+    import torch
+    import torch.distributed as dist
+
+    from polyphonicformer_torch.parallel.mesh import init_distributed
+
+    dev = init_distributed()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    meter, out = _CollectiveMeter(), {"backend": dist.get_backend(), "device": str(dev)}
+    for name, leg in DIST_LEGS:
+        dist.barrier()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = leg(dev, meter, work)
+        torch.cuda.synchronize()
+        res.update(wall_s=time.perf_counter() - t0,
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        out[name] = res
+        torch.cuda.empty_cache()
+    dist.barrier()
+    with open(f"{work}/rank{dist.get_rank()}.json", "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _launch(args: list, timeout: float) -> tuple:
+    """``tools/launch.py`` with ``args``; (stdout, seconds).  Raises unless
+    every rank exits 0."""
+    import os
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "polyphonicformer_torch.tools.launch", *args],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=timeout)
+    _check(f"launch {' '.join(args[-3:])}", proc.returncode == 0,
+           f"exit {proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return proc.stdout, time.perf_counter() - t0
+
+
+def _dist_references(dev, work) -> dict:
+    """The one-process runs phase 12's legs are held to, on the card before
+    the ranks start: the batch-2 f32 step, the served clips (both together
+    and each alone), the one-card ``video_swinl`` frame and step, the eval
+    hook."""
+    import torch
+
+    from polyphonicformer_torch.configs import preset
+    from polyphonicformer_torch.evalutils.runner import make_eval_hook
+    from polyphonicformer_torch.infer.pipeline import (init_batched_tracker_states,
+                                                       make_batched_video_step,
+                                                       make_video_step)
+    from polyphonicformer_torch.infer.tracker import init_tracker_state
+    from polyphonicformer_torch.models import PolyphonicFormer
+    from polyphonicformer_torch.train.step import create_train_state, make_train_step
+
+    ref, matchings = {"dp": {}}, {}
+    cfg = preset("video_r50_1x")
+    for seed in DIST_DP_SEEDS:
+        state, opt = _dp_state(cfg, dev)
+        ref["dp_init"] = _cpu_state(state.model)
+        step = make_train_step(state.model, cfg, opt, video=True)
+        batch, run = _dist_train_batch(cfg, dev, seed), {"metrics": [], "step_s": []}
+        with _Matchings() as m:
+            for _ in range(DIST_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                torch.cuda.synchronize()
+                run["step_s"].append(time.perf_counter() - t0)
+                run["metrics"].append({k: float(v) for k, v in metrics.items()})
+        matchings[seed] = [[(p.cpu(), g.cpu()) for p, g in st] for st in m.own]
+        run["matchings"], run["params"] = m.lists(), _cpu_state(state.model)
+        ref["dp"][seed] = run
+        del state, opt, step, batch
+    torch.save(matchings, f"{work}/dp_matchings.pt")  # the ranks' forced runs read it
+
+    scfg, smodel, _ = _serving_model("video_r50_1x", dev)
+    bf16 = torch.bfloat16
+    serve = make_batched_video_step(smodel, scfg, DIST_HW, bf16, bf16)
+    clips = _dist_clips(dev)
+    states = init_batched_tracker_states(scfg, 2, dev)
+    alone = [init_batched_tracker_states(scfg, 1, dev) for _ in range(2)]
+    ref["served"], ref["alone_digests"] = [], [[], []]
+    for t in range(DIST_SERVE_FRAMES):
+        ids = torch.tensor([t + 1, t + 11])
+        out, states = serve(clips[t], states, ids)
+        ref["served"].append({n: getattr(out, n).cpu() for n in ("semantic", "track_map",
+                                                                   "depth")})
+        for b in range(2):
+            o, alone[b] = serve(clips[t][b:b + 1], alone[b], ids[b:b + 1])
+            ref["alone_digests"][b].append(_frame_digest(o, 0))
+    hook = make_eval_hook(_eval_hook_cfg(), lambda: smodel, max_images=DIST_EVAL_FRAMES)
+    ref["eval_hook"] = hook(0)
+    del serve, smodel, states, alone
+
+    cfg = _swin_tp_cfg()
+    with torch.device("meta"):
+        model = PolyphonicFormer(cfg.model)
+    state, opt = create_train_state(model, cfg, torch.Generator(device=dev).manual_seed(0),
+                                    steps_per_epoch=1000, device=dev)
+    frame = _frames(torch.Generator(device=dev).manual_seed(3), 1, *DIST_HW, 32, dev)
+    serve = make_video_step(state.model, cfg.model, DIST_HW, bf16, bf16)
+    out, _ = serve(frame, init_tracker_state(cfg.model.tracker,
+                                             cfg.model.track_head.embed_channels, dev), 1)
+    ref["swin_frame"] = {n: getattr(out, n)[0].cpu() for n in ("semantic", "panoptic")}
+    del serve
+    step = make_train_step(state.model, cfg, opt, video=True)
+    batch = _dist_swin_batch(cfg, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    ref["swin_step_s"] = time.perf_counter() - t0
+    ref["swin_metrics"] = {k: float(v) for k, v in metrics.items()}
+    del state, opt, step, model, batch
+
+    cfg = _swin_tp_cfg("float32")  # leg (d)'s f32 check of the gradients
+    with torch.device("meta"):
+        model = PolyphonicFormer(cfg.model)
+    state, opt = create_train_state(model, cfg, torch.Generator(device=dev).manual_seed(0),
+                                    steps_per_epoch=1000, device=dev)
+    ref["swin32_init"] = _cpu_state(state.model)
+    step = make_train_step(state.model, cfg, opt, video=True)
+    batch = _dist_swin_batch(cfg, dev, TP_F32_HW)
+    with _Matchings() as m:
+        state, metrics = step(state, batch)
+    ref["swin32_metrics"] = {k: float(v) for k, v in metrics.items()}
+    ref["swin32_matchings"] = m.lists()[0]
+    torch.save([[(p.cpu(), g.cpu()) for p, g in m.own[0]]], f"{work}/swin32_matchings.pt")
+    ref["swin32_params"], ref["swin32_grads"] = _cpu_state(state.model), _step_grads(opt, metrics)
+    del state, opt, step, model, batch
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _dist_swin_batch(cfg, dev, hw=None):
+    from polyphonicformer_torch.data.synthetic import synthetic_batch
+
+    return synthetic_batch(cfg.model, 1, hw or DIST_HW, two_frame=True, seed=0, max_instances=24,
+                           device=dev)
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-6)
+
+
+def _distances(got: dict, want: dict, init: dict | None = None) -> dict:
+    """``got`` against ``want`` (state dicts or gradients by name): per
+    floating leaf the relative L2 of got - want to want - init (the
+    update, from the parameters ``init``; without ``init`` to want itself;
+    None where neither differs, inf where only ``got`` does), the same over
+    every leaf together, and got's relative L2 to want."""
+    leaves, num, den, wsq = {}, 0.0, 0.0, 0.0
+    for k, w in want.items():
+        if not w.is_floating_point():
+            continue
+        g, w = got[k].double(), w.double()
+        i = 0.0 if init is None else init[k].double()
+        a, b = float((g - w).square().sum()), float((w - i).square().sum())
+        leaves[k] = (a / b) ** 0.5 if b > 0 else (None if a == 0 else float("inf"))
+        num, den, wsq = num + a, den + b, wsq + float(w.square().sum())
+    return {"leaves": leaves, "rel_l2": (num / den) ** 0.5, "rel_l2_to_want": (num / wsq) ** 0.5}
+
+
+def run_dist(dev, f64_distance: float):
+    """Phase 12: the distributed layer on the one card.  (a) NCCL with one
+    rank (``tools/dist_check.py`` under the launcher); then 2 gloo ranks
+    sharing the card run (b) data-parallel ``video_r50_1x`` f32 training at
+    local batch 1 against the one-process batch-2 step, (c) 2 bf16 clips
+    served a clip a rank against the one-process step, (d) tensor-parallel
+    ``video_swinl`` bf16 over (data 1, model 2), a served frame and a video
+    train step against the one-card ones, (e) the sharded eval hook on
+    phase 8's split against the one-process hook, and the training CLI on
+    phase 9's split (2 steps and a resume).  ``f64_distance``: phase 9's
+    batch-2 debug step's largest metric distance from f64, whence (b)'s
+    tolerance."""
+    import glob
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from polyphonicformer_torch.train.checkpoint import state_digest
+    from polyphonicformer_torch.weights import gather_state_dict
+
+    kernels = _kernels()
+    work = _dist_dir()
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    info = {"hw": list(DIST_HW)}
+    try:
+        t0 = time.perf_counter()
+        ref = _dist_references(dev, work)
+        info["references_s"] = time.perf_counter() - t0
+
+        out, info["nccl_s"] = _launch(["--nproc", "1", "--store-file",
+                                       os.path.join(work, "nccl_store"), "--",
+                                       "polyphonicformer_torch.tools.dist_check"], 300)
+        _check("dist nccl", "backend nccl" in out and "total_loss=" in out
+               and "all_reduce ok: 1.0" in out, out[-2000:])
+        info["nccl"] = [ln for ln in out.splitlines() if "total_loss=" in ln or "backend" in ln]
+
+        _, info["ranks_s"] = _launch(["--nproc", "2", "--store-file",
+                                      os.path.join(work, "store"), "--", "chip_smoke",
+                                      "dist-rank", work], 900)
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        _check("dist backend", all(r["backend"] == "gloo" for r in ranks),
+               f"{[r['backend'] for r in ranks]}")
+
+        # (b) data-parallel training: each seed's batch with the step's own
+        # matchings, then with the one-process step's forced in.  A matching
+        # that f32 rounding flips between near-equal costs moves its stage's
+        # losses discretely: in the own run every metric of a stage whose
+        # matchings agree is held to ``tol``, in the forced run every metric
+        tol = 2 * f64_distance
+        info["dp_train"] = {"tolerance": tol, "f64_distance_debug": f64_distance,
+                            "grad_bytes": ranks[0]["dp_train"]["grad_bytes"]}
+        for seed in DIST_DP_SEEDS:
+            want = ref["dp"][seed]
+            for how in ("own", "forced"):
+                name = f"seed{seed}_{how}"
+                runs = [r["dp_train"]["runs"][name] for r in ranks]
+                same = [[all(run[i]["matchings"][j] == [x[r:r + 1] for x in want_j]
+                             for r, run in enumerate(runs))
+                         for j, want_j in enumerate(want["matchings"][i])]
+                        for i in range(DIST_STEPS)]
+
+                def held(i, key):
+                    if how == "forced":
+                        return True
+                    if key.startswith("loss_rpn_"):
+                        return same[i][0]
+                    if key[0] == "s" and key[1].isdigit():
+                        return same[i][int(key[1:key.index("_")]) + 1]
+                    return True
+                errs = [{k: _rel(v, want["metrics"][i][k])
+                         for k, v in runs[0][i]["metrics"].items()} for i in range(DIST_STEPS)]
+                for i in range(DIST_STEPS):
+                    s0, s1 = runs[0][i], runs[1][i]
+                    _check(f"dist dp {name} step {i} ranks", s0["digest"] == s1["digest"]
+                           and s0["metrics"] == s1["metrics"],
+                           "the ranks' parameters or metrics differ")
+                    bad = {k: v for k, v in errs[i].items() if held(i, k) and v > tol}
+                    _check(f"dist dp {name} step {i} vs one process", not bad,
+                           f"{bad}, tolerance {tol}")
+                d = _distances(torch.load(os.path.join(work, f"dp_params_{name}.pt")),
+                               want["params"], ref["dp_init"])
+                _check(f"dist dp {name} params", d["rel_l2_to_want"] <= 1e-3,
+                       f"relative L2 {d['rel_l2_to_want']}")
+                info["dp_train"][name] = {
+                    "metric_rel_err": errs, "matchings_equal": same,
+                    "not_held": [[k for k in e if not held(i, k)] for i, e in enumerate(errs)],
+                    "param_rel_l2": d["rel_l2_to_want"], "update_rel_l2": d["rel_l2"],
+                    "total_loss": [st["metrics"]["total_loss"] for st in runs[0]],
+                    "one_process_total_loss": [m["total_loss"] for m in want["metrics"]],
+                    "grad_norm": [st["metrics"]["grad_norm"] for st in runs[0]],
+                    "one_process_grad_norm": [m["grad_norm"] for m in want["metrics"]],
+                    "step_s": [[st["s"] for st in run] for run in runs],
+                    "one_process_step_s": want["step_s"],
+                    "collectives_a_step": [st["collectives"] for st in runs[0]]}
+        print(f"[12 dp_train] {json.dumps(info['dp_train'])}", flush=True)
+
+        # (c) sharded serving
+        for r, rank in enumerate(ranks):
+            _check(f"dist serving rank {r}",
+                   rank["dp_serve"]["digests"] == ref["alone_digests"][r],
+                   "a rank's clip differs from the one-process step on that clip")
+        served = torch.load(os.path.join(work, "served.pt"))
+        agree = {n: float(np.mean([float((s[n] == w[n]).float().mean())
+                                   for s, w in zip(served, ref["served"])]))
+                 for n in ("semantic", "track_map")}
+        depth = max(float((s["depth"] - w["depth"]).abs().max())
+                    for s, w in zip(served, ref["served"]))
+        info["dp_serve"] = {"frames": DIST_SERVE_FRAMES, "bit_equal_to_each_clip_alone": True,
+                            "agreement_with_2_clip_step": agree, "depth_max_abs_diff": depth,
+                            "frame_s": [r["dp_serve"]["frame_s"] for r in ranks]}
+
+        # (d) tensor-parallel Swin
+        t0_, t1_ = (r["tp_swin"] for r in ranks)
+        _check("dist tp ranks", t0_["metrics"] == t1_["metrics"], "the ranks' metrics differ")
+        err = {k: _rel(v, ref["swin_metrics"][k]) for k, v in t0_["metrics"].items()}
+        _check("dist tp step", max(err.values()) <= TP_RTOL,
+               f"{max(err, key=err.get)} off by {max(err.values())}")
+        # the f32 step: its gradients, each table's, and the planted fault's
+        _check("dist tp f32 ranks", t0_["f32_metrics"] == t1_["f32_metrics"],
+               "the ranks' metrics differ")
+        err32 = {k: _rel(v, ref["swin32_metrics"][k]) for k, v in t0_["f32_metrics"].items()}
+        cfg_tp = _swin_tp_cfg().model
+        shards = [torch.load(os.path.join(work, f"tp_shard{r}.pt")) for r in range(2)]
+        full = gather_state_dict([sh["params"] for sh in shards], cfg_tp)
+        _check("dist tp keys", set(full) == set(ref["swin32_params"]), "gathered keys differ")
+        d = _distances(gather_state_dict([sh["grads"] for sh in shards], cfg_tp),
+                       ref["swin32_grads"])
+        df = _distances(gather_state_dict([torch.load(os.path.join(work, f"tp_fault{r}.pt"))
+                                           for r in range(2)], cfg_tp), ref["swin32_grads"])
+        du = _distances(full, ref["swin32_params"], ref["swin32_init"])
+        tables = sorted(k for k in d["leaves"] if k.endswith("relative_position_bias_table"))
+        leaf_rel = {k: v for k, v in d["leaves"].items() if v is not None}
+        fault_rel = {k: df["leaves"][k] for k in tables}
+        worst = sorted(leaf_rel, key=leaf_rel.get, reverse=True)
+        ranked = sorted(leaf_rel.values())
+        info["tp_f32"] = {
+            "hw": list(TP_F32_HW), "max_metric_rel_err": max(err32.values()), "tolerance": tol,
+            "worst_metric": max(err32, key=err32.get),
+            "own_matchings_equal": [t0_["f32_matchings"][j] == m
+                                    for j, m in enumerate(ref["swin32_matchings"])],
+            "grad_rel_l2": d["rel_l2"], "leaf_bound": TP_GRAD_RTOL,
+            "leaf_rel_l2_quantiles": [ranked[int(q * (len(ranked) - 1))]
+                                      for q in (0.5, 0.9, 0.99, 1.0)],
+            "worst_leaves": [[k, leaf_rel[k]] for k in worst[:6]],
+            "table_rel_l2_max": max(leaf_rel[k] for k in tables),
+            "fault_table_rel_l2": [min(fault_rel.values()), max(fault_rel.values())],
+            "fault_grad_rel_l2": df["rel_l2"], "update_rel_l2": du["rel_l2"],
+            "param_rel_l2": du["rel_l2_to_want"],
+            "step_s": [r["tp_swin"]["f32_s"] for r in ranks],
+            "fault_s": [r["tp_swin"]["fault_s"] for r in ranks]}
+        print(f"[12 tp_f32] {json.dumps(info['tp_f32'])}", flush=True)
+        _check("dist tp f32 step", max(err32.values()) <= tol,
+               f"{max(err32, key=err32.get)} off by {max(err32.values())}")
+        _check("dist tp grads", leaf_rel[worst[0]] <= TP_GRAD_RTOL,
+               f"{worst[0]}: relative L2 {leaf_rel[worst[0]]} beyond {TP_GRAD_RTOL}")
+        _check("dist tp planted fault", min(fault_rel.values()) > TP_GRAD_RTOL,
+               f"the tables unsummed over the model axis pass: {fault_rel}")
+        frame = torch.load(os.path.join(work, "tp_frame.pt"))
+        label_agree = float((frame["semantic"] == ref["swin_frame"]["semantic"]).float().mean())
+        _check("dist tp frame", label_agree >= TP_LABEL_AGREE, f"labels agree {label_agree}")
+        info["tp_swin"] = {
+            "local_heads": [r["tp_swin"]["local_heads"] for r in ranks],
+            "qkv_shard": [r["tp_swin"]["qkv_shard"] for r in ranks],
+            "tolerance": TP_RTOL, "max_metric_rel_err": max(err.values()),
+            "worst_metric": max(err, key=err.get), "total_loss": t0_["metrics"]["total_loss"],
+            "one_card_total_loss": ref["swin_metrics"]["total_loss"],
+            "grad_norm": t0_["metrics"]["grad_norm"],
+            "one_card_grad_norm": ref["swin_metrics"]["grad_norm"],
+            "label_agreement": label_agree,
+            "step_s": [r["tp_swin"]["step_s"] for r in ranks], "one_card_step_s":
+            ref["swin_step_s"], "frame_s": [r["tp_swin"]["frame_s"] for r in ranks],
+            "step_collectives": t0_["step_collectives"],
+            "frame_collectives": t0_["frame_collectives"]}
+
+        # (e) the eval hook and the training CLI
+        for r, rank in enumerate(ranks):
+            got = rank["eval_hook"]["metrics"]
+            diff = max(abs(got[k] - v) for k, v in ref["eval_hook"].items())
+            _check(f"dist eval hook rank {r}", set(got) == set(ref["eval_hook"]) and diff < 1e-7,
+                   f"max diff {diff}")
+        c0, c1 = (r["train_cli"]["runs"] for r in ranks)
+        for run0, run1 in zip(c0, c1):
+            _check("dist cli ranks", run0["state_digest"] == run1["state_digest"]
+                   and run1["metrics_path"] is None and run1["saves"] == []
+                   and run0["steps_per_epoch"] == 6 and run0["world"] == 2,
+                   json.dumps([run0, run1])[:2000])
+            ckpt = torch.load(run0["saves"][-1]["path"], map_location="cpu", weights_only=True)
+            _check("dist cli checkpoint", state_digest(ckpt["model"]) == run0["state_digest"],
+                   "rank 0's checkpoint differs from the ranks' state")
+        _check("dist cli resume", (c0[1]["start_step"], c0[1]["end_step"])
+               == (DIST_CLI_STEPS, DIST_CLI_RESUME), json.dumps(c0[1])[:500])
+        logs = glob.glob(os.path.join(work, "cli", "*.metrics.jsonl"))
+        info["eval_hook"] = {"frames": DIST_EVAL_FRAMES, "max_diff": max(
+            abs(r["eval_hook"]["metrics"][k] - v) for r in ranks
+            for k, v in ref["eval_hook"].items())}
+        info["train_cli"] = {"runs": [{k: run[k] for k in ("start_step", "end_step",
+                                                           "steps_per_epoch", "cli_wall_s",
+                                                           "step_wall_s")} for run in c0],
+                             "metric_logs": len(logs)}
+        info["legs"] = {name: {"wall_s": [r[name]["wall_s"] for r in ranks],
+                               "peak_mem_gib": [r[name]["peak_mem_gib"] for r in ranks]}
+                        for name, _ in DIST_LEGS}
+        launches = {n: sum(r[name]["launches"][n] for r in ranks for name, _ in DIST_LEGS)
+                    for n in kernels}
+        info["launches"] = launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches, info
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "dist-rank":  # a rank of phase 12
+        sys.exit(_dist_rank(sys.argv[2]))
     sys.exit(main())

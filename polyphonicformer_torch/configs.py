@@ -6,7 +6,7 @@ reads, under the same names and with the same defaults (the reference's
 ``configs/_base_/models/polyphonic_former.py``,
 ``configs/_base_/schedules/schedule_{1x,2x}.py`` and the leaf configs named
 at each preset), so the port and everything it runs on import nothing of
-the JAX package (the parallel mesh excepted: the port trains on one card).
+the JAX package.
 ``tests/test_torch_configs.py`` holds each preset field for field against
 the JAX package's.
 """
@@ -132,6 +132,9 @@ class ModelConfig:
     compute_dtype: str = "float32"  # 'bfloat16': bf16 forward, f32 master weights
     # recompute the backbone in the backward pass (torch.utils.checkpoint)
     remat_backbone: bool = True
+    # tensor-shard the backbone (Swin only) over the mesh's model axis
+    # (models/swin.py, parallel/tensor_parallel.py)
+    shard_backbone: bool = False
 
     @property
     def num_classes(self) -> int:
@@ -182,10 +185,21 @@ class ScheduleConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """Mesh layout (parallel/mesh.py): data-parallel by default; the model
+    axis tensor-shards a Swin backbone."""
+    data_axis: str = "data"
+    model_axis: str = "model"
+    num_data: int = -1  # -1: every rank over num_model
+    num_model: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
     model: ModelConfig = ModelConfig()
     data: DataConfig = DataConfig()
     schedule: ScheduleConfig = ScheduleConfig()
+    parallel: ParallelConfig = ParallelConfig()
     work_dir: str = "work_dirs/default"
     seed: int = 0
     load_from: Optional[str] = None

@@ -1,9 +1,11 @@
-"""Image-mode evaluation runner and the training CLI's eval hook; the
-single-process part of ``polyphonicformer_tpu/evalutils/runner.py`` over
-the port's ``make_image_step``.
+"""Image-mode evaluation runner and the training CLI's eval hook;
+``polyphonicformer_tpu/evalutils/runner.py`` over the port's
+``make_image_step``.
 
-The sharded evaluation (``allgather_frame_stats``, ``sharded=True``) waits
-for the port's distributed slice (ROADMAP item 1.6).
+Sharded (``sharded=True``): each rank evaluates ``frames[rank::world]``
+and the per-frame statistics, additive across frames, are gathered to
+every rank (:func:`allgather_frame_stats`), so every rank returns the full
+split's metrics; on one process that is the unsharded evaluation.
 """
 from __future__ import annotations
 
@@ -99,13 +101,53 @@ def _infer_frame_stats(model_cfg, data_cfg, model, ds, infos, bf16: bool,
     return np.stack(vpqs), np.stack(depths)
 
 
-def evaluate_frames(model_cfg, data_cfg, model, ds, frames,
-                    verbose: bool = False, bf16: bool = False) -> Dict[str, float]:
+def _world():
+    """(group, rank, world) of every rank; (None, 0, 1) on one process."""
+    import torch.distributed as dist
+
+    from ..parallel.mesh import world_group
+
+    group = world_group()
+    return (group, 0, 1) if group is None else (group, dist.get_rank(), dist.get_world_size())
+
+
+def allgather_frame_stats(vpq_stats: np.ndarray, depth_stats: np.ndarray,
+                          n_total: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The ranks' frame-statistic shards gathered into the full-split
+    arrays on every rank, in rank order (mmdet collect_results_cpu).  Each
+    shard is padded to ceil(n_total / world) rows with zero rows: zero vpq
+    statistics add nothing and a zero depth valid flag drops the row from
+    the weighted mean."""
+    import torch
+
+    from ..parallel.mesh import all_gather
+
+    group, _, world = _world()
+    per = -(-n_total // world)
+    pad = per - vpq_stats.shape[0]
+    if pad:
+        vpq_stats = np.concatenate([vpq_stats, np.zeros((pad,) + vpq_stats.shape[1:])])
+        depth_stats = np.concatenate([depth_stats, np.zeros((pad, depth_stats.shape[1]))])
+    vpq_all = all_gather(torch.from_numpy(np.ascontiguousarray(vpq_stats, np.float64)), group)
+    depth_all = all_gather(torch.from_numpy(np.ascontiguousarray(depth_stats, np.float64)),
+                           group)
+    return (vpq_all.numpy().reshape((-1,) + vpq_stats.shape[1:]),
+            depth_all.numpy().reshape((-1, depth_stats.shape[1])))
+
+
+def evaluate_frames(model_cfg, data_cfg, model, ds, frames, verbose: bool = False,
+                    bf16: bool = False, sharded: bool = False) -> Dict[str, float]:
     """Run single-frame panoptic+depth inference with ``model`` (on its own
     device) over ``frames`` and compute image PQ + depth metrics
-    (CityscapesDVPSDataset.evaluate equivalent)."""
+    (CityscapesDVPSDataset.evaluate equivalent).  ``sharded``: this rank
+    infers ``frames[rank::world]`` and every rank returns the metrics of
+    all of ``frames``."""
+    _, rank, world = _world()
+    mine = list(frames)[rank::world] if sharded else frames
     vpq_stats, depth_stats = _infer_frame_stats(
-        model_cfg, data_cfg, model, ds, frames, bf16, verbose)
+        model_cfg, data_cfg, model, ds, mine, bf16, verbose)
+    if sharded:
+        vpq_stats, depth_stats = allgather_frame_stats(vpq_stats, depth_stats, len(frames))
     return metrics_from_stats(vpq_stats, depth_stats)
 
 
@@ -115,29 +157,45 @@ def make_eval_hook(cfg, model_fn: Callable, max_images: Optional[int] = 50,
     ``model_fn()`` over the first ``max_images`` frames of the val split
     (None or 0: all of them; reference EvalHook,
     mmdet/apis/train.py:183-204), or None, with the reason printed, when
-    the split is absent or empty."""
+    the split is absent or empty.  ``sharded``: :func:`evaluate_frames`
+    sharded over the job's ranks, which first agree that each of them has
+    the split: when only some have it, every rank raises (the others would
+    wait for them in the gather forever)."""
     from ..data.cityscapes_dvps import CityscapesDVPSDataset
 
-    if sharded:
-        raise NotImplementedError("make_eval_hook(sharded=True): the port's distributed "
-                                  "evaluation is ROADMAP item 1.6")
     try:
         ds = CityscapesDVPSDataset(cfg.data.data_root, split="val", ref_sample_mode="img",
                                    with_depth=True)
+        err = None
     except FileNotFoundError as e:  # val split not on disk
-        print(f"eval hook disabled ({e})")
+        ds, err = None, e
+    frames = [] if ds is None else (ds.images if not max_images else ds.images[:max_images])
+    group, rank, world = _world()
+    if sharded:
+        import torch
+
+        from ..parallel.mesh import all_gather
+
+        ok = all_gather(torch.tensor([1 if frames else 0], dtype=torch.int32), group)
+        if ok.min() != ok.max():
+            raise RuntimeError(
+                f"val split visible on only {int(ok.sum())}/{world} ranks (rank {rank}: "
+                f"{'ok' if frames else err}); put the dataset on every host or set "
+                "--eval-every-epochs 0")
+    if err is not None:
+        print(f"eval hook disabled ({err})")
         return None
-    frames = ds.images if not max_images else ds.images[:max_images]
     if not frames:
         print("eval hook disabled (empty val split)")
         return None
 
     def hook(step: int) -> Dict[str, float]:
-        metrics = evaluate_frames(cfg.model, cfg.data, model_fn(), ds, frames)
+        metrics = evaluate_frames(cfg.model, cfg.data, model_fn(), ds, frames, sharded=sharded)
         flat = {k: v for k, v in metrics.items() if isinstance(v, float)}
-        summary = " ".join(f"{k}={v:.4f}" for k, v in sorted(flat.items())
-                           if k in ("pq@inf", "pq_thing@inf", "pq_stuff@inf", "depth_abs_rel"))
-        print(f"[eval @ step {step}] {summary} ({len(frames)} frames)", flush=True)
+        if rank == 0:
+            summary = " ".join(f"{k}={v:.4f}" for k, v in sorted(flat.items()) if k in (
+                "pq@inf", "pq_thing@inf", "pq_stuff@inf", "depth_abs_rel"))
+            print(f"[eval @ step {step}] {summary} ({len(frames)} frames)", flush=True)
         return flat
 
     return hook

@@ -7,7 +7,10 @@ fusion's marginals -> RoIAlign track embeddings -> tracker -> the four maps
 (K4).  PyTorch runs eagerly, so ``make_*_step`` bind their arguments and
 ``clip_video_step`` is a Python loop over the frames.  ``batched_video_step``
 serves one frame of each of B clips: one batched network forward, then
-fusion and the tracker per clip.
+fusion and the tracker per clip.  Over the data ranks of a mesh
+(:func:`make_sharded_batched_video_step`) each rank serves its part of the
+clips with the same weights and its own tracker states, and
+:func:`gather_frame_outputs` gathers the outputs in clip order.
 """
 from __future__ import annotations
 
@@ -302,3 +305,40 @@ def make_image_step(model: PolyphonicFormer, cfg, out_hw, compute_dtype=torch.fl
     return functools.partial(image_step, cast_model(model, compute_dtype), cfg,
                              out_hw=tuple(out_hw), compute_dtype=compute_dtype,
                              fusion_dtype=fusion_dtype)
+
+
+def make_sharded_batched_video_step(model: PolyphonicFormer, cfg, out_hw, mesh,
+                                    compute_dtype=torch.float32, fusion_dtype=torch.float32):
+    """:func:`make_batched_video_step` of one data rank of ``mesh`` (the JAX
+    package's mesh-sharded ``batched_video_step``): the weights come from
+    data index 0 first, so every rank serves the same model; then
+    step(images, tracker_states, frame_ids) takes the global batch of
+    images and frame ids, serves this rank's clips
+    (``parallel.mesh.local_slice``) with this rank's tracker states
+    (``init_batched_tracker_states`` of the local clip count) and returns
+    this rank's (FrameOutput, TrackerState)."""
+    from ..parallel.mesh import broadcast_module, local_slice
+
+    broadcast_module(model, mesh.data_group)
+    step = make_batched_video_step(model, cfg, out_hw, compute_dtype, fusion_dtype)
+
+    def sharded(images, tracker_states, frame_ids):
+        return step(local_slice(images, mesh), tracker_states,
+                    local_slice(torch.as_tensor(frame_ids), mesh))
+
+    return sharded
+
+
+def gather_frame_outputs(out: FrameOutput, mesh) -> FrameOutput:
+    """Every rank's FrameOutput (leading clip axis, the same clip count on
+    every data rank) on every rank, concatenated in clip order."""
+    from ..parallel.mesh import all_gather
+
+    def gather(x):
+        if torch.is_tensor(x):
+            return all_gather(x, mesh.data_group).flatten(0, 1)
+        if isinstance(x, tuple):
+            return type(x)(*(gather(v) for v in x))
+        return x
+
+    return gather(out)

@@ -2,12 +2,15 @@
 absolute-relative); mirrors ``polyphonicformer_tpu/losses/depth_loss.py``:
 points with 0 < target < 80 and weight != 0, the soft weight multiplied
 into the residuals, normalised by the point count; the loss is
-``loss_weight * mean(si * w_si, sq * w_sq, abs * w_abs)``."""
+``loss_weight * mean(si * w_si, sq * w_sq, abs * w_abs)``.  Under data
+parallelism the point count and the error sums are the global batch's
+(``parallel.mesh.global_sums``)."""
 from __future__ import annotations
 
 import torch
 
 from ..ops.depth import depth_act
+from ..parallel.mesh import global_sums
 
 
 def depth_loss_raw_stacked(pred_depth: torch.Tensor, target: torch.Tensor,
@@ -22,16 +25,17 @@ def depth_loss_raw_stacked(pred_depth: torch.Tensor, target: torch.Tensor,
     w = mask_weight.float().reshape(s, -1)
     mask = (t > min_depth) & (t < max_depth) & (w != 0)
     mf = mask.float()
-    n = mf.sum(dim=1)
     safe_t = torch.where(mask, t, 1.0)
     safe_p = torch.where(mask, pred, 1.0)
     log_minus = (torch.log(safe_p) - torch.log(safe_t)) * w * mf
     minus = (safe_p - safe_t) * w * mf
+    n, log_sq, log_sum, rel_sq, rel_abs = global_sums(
+        mf.sum(dim=1), log_minus.square().sum(dim=1), log_minus.sum(dim=1),
+        (minus / safe_t).square().sum(dim=1), (minus / safe_t).abs().sum(dim=1))
     n_safe = torch.clamp(n, min=1.0)
-    si_err = (log_minus.square().sum(dim=1) / n_safe
-              - log_minus.sum(dim=1) / (n_safe * n_safe))
-    sq_rel = torch.sqrt(torch.clamp((minus / safe_t).square().sum(dim=1) / n_safe, min=1e-20))
-    abs_rel = (minus / safe_t).abs().sum(dim=1) / n_safe
+    si_err = log_sq / n_safe - log_sum / (n_safe * n_safe)
+    sq_rel = torch.sqrt(torch.clamp(rel_sq / n_safe, min=1e-20))
+    abs_rel = rel_abs / n_safe
     out = torch.stack([si_err, sq_rel, abs_rel], dim=1)
     return torch.where((n > 0)[:, None], out, 0.0)
 

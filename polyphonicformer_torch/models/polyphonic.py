@@ -40,14 +40,19 @@ class _RoIHead(nn.Module):
 
 
 class PolyphonicFormer(nn.Module):
-    def __init__(self, cfg):
-        """cfg: a ``configs.ModelConfig`` (ResNet, Swin or STDC backbones)."""
+    def __init__(self, cfg, tp=None):
+        """cfg: a ``configs.ModelConfig`` (ResNet, Swin or STDC backbones).
+        ``tp``: the mesh's model axis (``parallel.tensor_parallel.
+        ModelParallel``) that a Swin backbone with ``cfg.shard_backbone``
+        shards over; ignored otherwise."""
         super().__init__()
+        self.cfg = cfg
         if cfg.backbone.startswith("resnet"):
             self.backbone = ResNet(cfg.backbone)
             self.backbone.freeze(cfg.frozen_stages)
         elif cfg.backbone in SWIN_SPECS:  # no Swin stage is frozen (JAX is_frozen)
-            self.backbone = SwinTransformer(*SWIN_SPECS[cfg.backbone])
+            self.backbone = SwinTransformer(*SWIN_SPECS[cfg.backbone],
+                                            tp=tp if cfg.shard_backbone else None)
         elif cfg.backbone in STDC_LAYERS:  # nor any STDC parameter
             self.backbone = STDCNet(layers=STDC_LAYERS[cfg.backbone])
         else:
@@ -133,16 +138,29 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def build_model(cfg, device="cuda", generator: torch.Generator | None = None,
-                state_dict=None) -> PolyphonicFormer:
+                state_dict=None, tp=None) -> PolyphonicFormer:
     """A model on ``device`` in eval mode, its weights drawn from
     ``generator`` or loaded (``strict=True``) from ``state_dict``: exactly
     one of the two.  Built on the meta device first, so construction itself
     draws nothing.  The parameters of the frozen backbone stages
-    (``cfg.frozen_stages``) have ``requires_grad=False``."""
+    (``cfg.frozen_stages``) have ``requires_grad=False``.
+
+    With ``tp`` (the mesh's model axis) and ``cfg.shard_backbone``: this
+    rank's shard of the tensor-parallel model.  ``state_dict`` is then the
+    full one, or a generator draws the full model on ``device`` first (the
+    single-card model's weights); either is cut to the rank's shard
+    (``weights.shard_state_dict``)."""
     if (generator is None) == (state_dict is None):
         raise ValueError("give exactly one of generator and state_dict")
+    if tp is not None and cfg.shard_backbone:
+        from ..weights import shard_state_dict
+
+        if generator is not None:
+            state_dict = build_model(cfg, device, generator=generator).state_dict()
+        state_dict = shard_state_dict(state_dict, cfg, tp.index, tp.size)
+        generator = None
     with torch.device("meta"):
-        model = PolyphonicFormer(cfg)
+        model = PolyphonicFormer(cfg, tp)
     model = model.to_empty(device=device)
     if generator is not None:
         init_weights(model, generator)

@@ -15,8 +15,21 @@ K8 on the padded, rolled image; every other block (stages 2-3) runs K7 on
 partitioned windows (``ops/cuda/window_attn.py``).  The relative-position
 bias is gathered in the parameters' dtype and upcast to f32, as in JAX.
 Not ported: the paired-window variant (``POLY_WATTN_PAIR``, a TPU lane
-packing numerically identical to unpaired windows) and the logical-axis
-metadata of tensor parallelism (``partition=True``).
+packing numerically identical to unpaired windows).
+
+Tensor parallelism (``tp``, ``ModelConfig.shard_backbone``; the Megatron
+layout of JAX's ``SWIN_LOGICAL_RULES``): ``WindowMSA.qkv`` is
+column-sharded by heads (a rank holds its heads' q, k and v rows of the
+weight), ``proj`` row-sharded, the FFN's first linear column- and its
+second row-sharded (``parallel/tensor_parallel.py``).  Heads and hidden
+units split into contiguous parts, the first ranks one longer where the
+count does not divide (swin_tiny's 3 stage-0 heads over 2 ranks: 2 + 1);
+the row-parallel sum covers uneven parts as even ones.  LayerNorms,
+``PatchMerging``, ``PatchEmbed`` and the bias tables stay replicated (JAX
+``swin_rpb: None``): a rank gathers its heads' columns of the table, whose
+gradient the train step sums over the model axis.  K7 and K8 run on the
+rank's heads; the K8-or-K7 gate reads the block's global head count, so
+each block keeps the kernel of the single-card model.
 """
 from __future__ import annotations
 
@@ -29,6 +42,8 @@ from torch.nn import functional as F
 
 from ..ops.cuda.window_attn import window_attention, window_attn_math
 from ..ops.device_tables import device_table
+from ..parallel.tensor_parallel import (ColumnParallelLinear, ModelParallel,
+                                        RowParallelLinear, split_range)
 
 _K8_MAX_HEADS = 12  # JAX swin.py SwinBlock: the fused image-layout kernel up to 12 heads
 
@@ -92,32 +107,47 @@ class LayerNorm(nn.LayerNorm):
 
 
 class WindowMSA(nn.Module):
-    """mmdet ``WindowMSA``'s parameters: qkv, proj and the bias table."""
+    """mmdet ``WindowMSA``'s parameters: qkv, proj and the bias table.
+    ``num_heads`` is the block's global head count; with ``tp`` the rank
+    holds ``local_heads`` of them from ``head_start`` on."""
 
-    def __init__(self, dim: int, num_heads: int, window_size: int):
+    def __init__(self, dim: int, num_heads: int, window_size: int,
+                 tp: ModelParallel | None = None):
         super().__init__()
         self.num_heads = num_heads
         self.window_size = window_size
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros(((2 * window_size - 1) ** 2, num_heads)))
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        if tp is None:
+            self.head_start, self.local_heads = 0, num_heads
+            self.qkv = nn.Linear(dim, 3 * dim)
+            self.proj = nn.Linear(dim, dim)
+        else:
+            self.head_start, self.local_heads = split_range(num_heads, tp.size, tp.index)
+            local = self.local_heads * (dim // num_heads)
+            self.qkv = ColumnParallelLinear(dim, 3 * local, tp)
+            self.proj = RowParallelLinear(local, dim, tp)
+            self.tp_layout = {"relative_position_bias_table": "partial"}
 
     def bias(self) -> torch.Tensor:
-        """(heads, L, L) f32, gathered in the table's dtype, then upcast."""
-        l = self.window_size ** 2
+        """(local heads, L, L) f32, gathered in the table's dtype, then
+        upcast."""
+        l, h0, h = self.window_size ** 2, self.head_start, self.local_heads
         table = self.relative_position_bias_table
+        if h != self.num_heads:
+            table = table[:, h0:h0 + h]
         idx = _index_on(self.window_size, table.device)
-        return table[idx].reshape(l, l, self.num_heads).permute(2, 0, 1).float().contiguous()
+        return table[idx].reshape(l, l, h).permute(2, 0, 1).float().contiguous()
 
 
 class ShiftWindowMSA(nn.Module):
     """Pad to window multiples, roll, window attention, roll back, crop."""
 
-    def __init__(self, dim: int, num_heads: int, window_size: int, shift: int):
+    def __init__(self, dim: int, num_heads: int, window_size: int, shift: int,
+                 tp: ModelParallel | None = None):
         super().__init__()
         self.shift = shift
-        self.w_msa = WindowMSA(dim, num_heads, window_size)
+        self.w_msa = WindowMSA(dim, num_heads, window_size, tp)
 
     def forward(self, y: torch.Tensor) -> torch.Tensor:
         b, h, w, c = y.shape
@@ -130,12 +160,12 @@ class ShiftWindowMSA(nn.Module):
         if s:
             y = torch.roll(y, (-s, -s), dims=(1, 2))
             mask = _mask_on(hp, wp, ws, s, y.device)
-        bias = attn.bias()
+        bias, heads = attn.bias(), attn.local_heads
         if attn.num_heads <= _K8_MAX_HEADS:  # K8 on the image layout
-            y = attn.proj(window_attention(attn.qkv(y), bias, mask, attn.num_heads, ws))
+            y = attn.proj(window_attention(attn.qkv(y), bias, mask, heads, ws))
         else:  # K7 on partitioned windows
             win = attn.qkv(window_partition(y, ws))
-            win = attn.proj(window_attn_math(win, bias, mask, attn.num_heads))
+            win = attn.proj(window_attn_math(win, bias, mask, heads))
             y = window_unpartition(win, ws, (hp, wp))
         if s:
             y = torch.roll(y, (s, s), dims=(1, 2))
@@ -143,12 +173,17 @@ class ShiftWindowMSA(nn.Module):
 
 
 class SwinFFN(nn.Module):
-    """mmcv FFN's parameter names: Linear -> exact (erf) GELU -> Linear."""
+    """mmcv FFN's parameter names: Linear -> exact (erf) GELU -> Linear;
+    with ``tp`` column- then row-parallel over the rank's hidden units."""
 
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, tp: ModelParallel | None = None):
         super().__init__()
-        self.layers = nn.ModuleList([nn.Sequential(nn.Linear(dim, hidden), nn.GELU()),
-                                     nn.Linear(hidden, dim)])
+        if tp is None:
+            fc1, fc2 = nn.Linear(dim, hidden), nn.Linear(hidden, dim)
+        else:
+            local = split_range(hidden, tp.size, tp.index)[1]
+            fc1, fc2 = ColumnParallelLinear(dim, local, tp), RowParallelLinear(local, dim, tp)
+        self.layers = nn.ModuleList([nn.Sequential(fc1, nn.GELU()), fc2])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.layers[1](self.layers[0](x))
@@ -156,12 +191,12 @@ class SwinFFN(nn.Module):
 
 class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int = 7, shift: int = 0,
-                 mlp_ratio: float = 4.0):
+                 mlp_ratio: float = 4.0, tp: ModelParallel | None = None):
         super().__init__()
         self.norm1 = LayerNorm(dim, eps=1e-5)
-        self.attn = ShiftWindowMSA(dim, num_heads, window_size, shift)
+        self.attn = ShiftWindowMSA(dim, num_heads, window_size, shift, tp)
         self.norm2 = LayerNorm(dim, eps=1e-5)
-        self.ffn = SwinFFN(dim, int(dim * mlp_ratio))
+        self.ffn = SwinFFN(dim, int(dim * mlp_ratio), tp)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.norm1(x))
@@ -206,24 +241,28 @@ class PatchEmbed(nn.Module):
 
 class SwinStage(nn.Module):
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
-                 out_dim: int | None):
+                 out_dim: int | None, tp: ModelParallel | None = None):
         super().__init__()
         self.blocks = nn.ModuleList(
-            SwinBlock(dim, num_heads, window_size, 0 if b % 2 == 0 else window_size // 2)
+            SwinBlock(dim, num_heads, window_size, 0 if b % 2 == 0 else window_size // 2,
+                      tp=tp)
             for b in range(depth))
         self.downsample = PatchMerging(dim, out_dim) if out_dim is not None else None
 
 
 class SwinTransformer(nn.Module):
     def __init__(self, embed_dim: int = 96, depths: Sequence[int] = (2, 2, 6, 2),
-                 num_heads: Sequence[int] = (3, 6, 12, 24), window_size: int = 7):
+                 num_heads: Sequence[int] = (3, 6, 12, 24), window_size: int = 7,
+                 tp: ModelParallel | None = None):
+        """``tp``: the model axis to shard the blocks' linears over (None:
+        the single-card model)."""
         super().__init__()
         dims = [embed_dim * 2 ** s for s in range(len(depths))]
         self.out_channels = tuple(dims)
         self.patch_embed = PatchEmbed(embed_dim)
         self.stages = nn.ModuleList(
             SwinStage(dims[s], depths[s], num_heads[s], window_size,
-                      dims[s + 1] if s + 1 < len(depths) else None)
+                      dims[s + 1] if s + 1 < len(depths) else None, tp)
             for s in range(len(depths)))
         for s, dim in enumerate(dims):
             self.add_module(f"norm{s}", LayerNorm(dim, eps=1e-5))

@@ -1,4 +1,4 @@
-"""Training CLI on one card; the port of
+"""Training CLI on one card or several data-parallel ranks; the port of
 ``polyphonicformer_tpu/tools/train.py``, with the same flags plus
 ``--device``.
 
@@ -9,8 +9,9 @@
 reference: tools/train.py + mmdet train_detector (mmdet/apis/train.py).
 ``cfg.data.batch_size`` samples a step from the train split through the
 worker-process loader (``--loader process``) or the thread loader; the
-step is ``train/step.py::make_train_step`` (``video=True`` for a preset
-with the track head).  Every ``schedule.log_interval`` steps a line of
+step is ``train/step.py::make_sharded_train_step`` (on one process the
+plain ``make_train_step``; ``video=True`` for a preset with the track
+head).  Every ``schedule.log_interval`` steps a line of
 metrics goes to ``work_dir/<time>.metrics.jsonl`` and stdout, with
 ``samples_per_sec`` and ``eta_min``; metric tensors are read back to the
 host only on those steps.  Every ``schedule.checkpoint_interval`` epochs
@@ -19,8 +20,16 @@ and at the last step a checkpoint goes to
 ``schedule.max_keep_checkpoints`` kept); ``--resume`` continues from the
 latest.  Every ``--eval-every-epochs`` epochs the val split, when it is on
 disk, is evaluated (image PQ and depth).  Runs on the CUDA card unless
-``--device cpu``; with no card it raises.  One card: multi-card training
-is ROADMAP item 1.6.
+``--device cpu``; with no card it raises.
+
+Several ranks (``tools/launch.py --nproc N`` or ``torchrun``): each rank
+takes ``cfg.data.batch_size`` samples a step from its own loader (seed
+``--seed + 1000 x rank``), the step sums the gradients over the data
+axis, an epoch is ``len(ds) * repeat_times // (batch_size x
+world)`` steps, ``samples_per_sec`` counts the global batch, rank 0 alone
+writes the metrics and the checkpoints, and the eval hook is sharded over
+the ranks.  ``--device cuda`` is the rank's card.  Tensor-parallel Swin
+(``train/step.py::make_tp_train_setup``) is a library path, not this CLI's.
 """
 from __future__ import annotations
 
@@ -30,8 +39,9 @@ import time
 
 
 def main(argv=None) -> dict:
-    """Returns a summary: the steps run, the metric file, the checkpoints
-    written, each step's host wall (the loader's batch, then the queued
+    """Returns a summary: the steps run, the rank and world, the metric file
+    (None but on rank 0), the checkpoints written, the final parameters'
+    ``state_digest``, each step's host wall (the loader's batch, then the queued
     step; no save or evaluation), the part of it spent in the loader (its
     transfer included) and the part of that spent waiting for samples, the
     save and restore seconds and the evaluations."""
@@ -55,20 +65,23 @@ def main(argv=None) -> dict:
                     help="0 = the full val split")
     ap.add_argument("--set", nargs="*", dest="overrides",
                     help="dotted-path config overrides key=value")
-    ap.add_argument("--device", default="cuda",
-                    help="torch device to run on (default cuda; cpu on request)")
+    ap.add_argument("--device", default=None,
+                    help="torch device to run on (default cuda, the rank's card; cpu on "
+                         "request or under tools/launch.py --sim-cpu)")
     args = ap.parse_args(argv)
 
     import torch
 
     from ..data.cityscapes_dvps import CityscapesDVPSDataset
     from ..models import PolyphonicFormer
-    from ..train.checkpoint import latest_step, make_manager, restore_state, save_state
+    from ..parallel.mesh import init_distributed, make_mesh
+    from ..train.checkpoint import (latest_step, make_manager, restore_state, save_state,
+                                    state_digest)
     from ..train.metrics import MetricWriter
-    from ..train.step import create_train_state, make_train_step
+    from ..train.step import create_train_state, make_sharded_train_step
     from ._cli import experiment, load_model, select_device
 
-    dev = select_device(args.device)
+    dev = select_device(str(init_distributed(args.device)))  # no-op outside a launched job
     cfg = experiment(args.preset)
     if args.data_root:
         cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data,
@@ -80,6 +93,12 @@ def main(argv=None) -> dict:
 
         cfg = apply_overrides(cfg, parse_overrides(args.overrides))
 
+    if cfg.parallel.num_model != 1:
+        raise ValueError("the training CLI is data-parallel (parallel.num_model=1); "
+                         "tensor-parallel Swin is train/step.py::make_tp_train_setup")
+    mesh = make_mesh(cfg.parallel, dev)
+    rank, world = mesh.rank, mesh.world
+
     video = cfg.model.with_track
     ds = CityscapesDVPSDataset(cfg.data.data_root, split=cfg.data.split,
                                ref_sample_mode=cfg.data.ref_sample_mode,
@@ -88,11 +107,13 @@ def main(argv=None) -> dict:
         from ..data.mp_loader import MPTrainLoader as Loader
     else:
         from ..data.loader import TrainLoader as Loader
-    loader = Loader(ds, cfg.data, cfg.model, seed=args.seed, device=dev)
+    loader = Loader(ds, cfg.data, cfg.model, seed=args.seed + 1000 * rank, device=dev)
 
-    # the batch is per step on one card; the schedule and the intervals
-    # count steps of len(ds) * repeat_times samples an epoch
-    steps_per_epoch = max(len(ds) * cfg.data.repeat_times // cfg.data.batch_size, 1)
+    # cfg.data.batch_size is a rank's batch (the reference's samples_per_gpu);
+    # the schedule and the intervals count steps of len(ds) * repeat_times
+    # samples an epoch over the global batch
+    global_batch = cfg.data.batch_size * world
+    steps_per_epoch = max(len(ds) * cfg.data.repeat_times // global_batch, 1)
     total_steps = args.max_steps or steps_per_epoch * cfg.schedule.total_epochs
 
     if args.load_from:
@@ -112,8 +133,8 @@ def main(argv=None) -> dict:
         restore_s = time.perf_counter() - t0
         print(f"resumed from step {int(state.step)}")
 
-    step_fn = make_train_step(state.model, cfg, opt, video=video)
-    writer = MetricWriter(cfg.work_dir, cfg.schedule.log_interval)
+    step_fn = make_sharded_train_step(state.model, cfg, opt, mesh, video=video)
+    writer = MetricWriter(cfg.work_dir, cfg.schedule.log_interval) if rank == 0 else None
 
     # periodic eval during training (reference EvalHook,
     # mmdet/apis/train.py:183-204); disabled when there is no val split
@@ -121,13 +142,15 @@ def main(argv=None) -> dict:
     if args.eval_every_epochs > 0:
         from ..evalutils.runner import make_eval_hook
 
-        eval_hook = make_eval_hook(cfg, lambda: state.model, max_images=args.eval_max_images)
+        eval_hook = make_eval_hook(cfg, lambda: state.model, max_images=args.eval_max_images,
+                                   sharded=True)
     eval_every = steps_per_epoch * max(args.eval_every_epochs, 1)
     ckpt_every = steps_per_epoch * cfg.schedule.checkpoint_interval
 
     start = int(state.step)
-    summary = {"start_step": start, "total_steps": total_steps,
-               "steps_per_epoch": steps_per_epoch, "metrics_path": writer.path,
+    summary = {"start_step": start, "total_steps": total_steps, "rank": rank, "world": world,
+               "steps_per_epoch": steps_per_epoch,
+               "metrics_path": None if writer is None else writer.path,
                "step_wall_s": [], "loader_s": [], "sample_wait_s": [], "saves": [],
                "restore_s": restore_s, "evals": []}
     it = iter(loader)
@@ -142,8 +165,8 @@ def main(argv=None) -> dict:
                 summary["sample_wait_s"].append(loader.sample_wait_s - waited)
                 state, metrics = step_fn(state, batch)
                 summary["step_wall_s"].append(time.perf_counter() - t0)
-            samples_done += cfg.data.batch_size
-            if writer.due(step_idx + 1):
+            samples_done += global_batch
+            if writer is not None and writer.due(step_idx + 1):
                 metrics = {k: float(v) for k, v in metrics.items()}  # waits for the step
                 dt = time.perf_counter() - t_log
                 steps_left = total_steps - (step_idx + 1)
@@ -151,8 +174,10 @@ def main(argv=None) -> dict:
                 metrics["eta_min"] = steps_left * (dt / cfg.schedule.log_interval) / 60
                 t_log = time.perf_counter()
                 samples_done = 0
-            writer.write(step_idx + 1, metrics)
-            if (step_idx + 1) % ckpt_every == 0 or step_idx + 1 == total_steps:
+            if writer is not None:
+                writer.write(step_idx + 1, metrics)
+            if rank == 0 and (
+                    (step_idx + 1) % ckpt_every == 0 or step_idx + 1 == total_steps):
                 t0 = time.perf_counter()
                 path = save_state(mgr, step_idx + 1, state, opt)
                 summary["saves"].append({"step": step_idx + 1, "path": path,
@@ -164,8 +189,12 @@ def main(argv=None) -> dict:
                                          "s": time.perf_counter() - t0})
     finally:
         loader.stop()
-        writer.close()
+        if writer is not None:
+            writer.close()
+    if world > 1:  # rank 0's last checkpoint is on disk before any rank moves on
+        torch.distributed.barrier()
     summary["end_step"] = int(state.step)
+    summary["state_digest"] = state_digest(state.model.state_dict())
     print("training done")
     return summary
 

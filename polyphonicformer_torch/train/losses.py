@@ -15,6 +15,13 @@ The mask, dice and rank reductions of each stack of stages go through K6
 does: the kernel on a CUDA tensor, its plain version on a CPU tensor.
 :func:`compute_losses` is :func:`assign` followed by :func:`losses_from`;
 the two halves are public so that a caller can time them apart.
+
+Under data parallelism (inside ``parallel.mesh.data_parallel_losses``)
+every sum that a loss divides is summed over the data axis first
+(``global_sums``) and every batch size is the global one, so each rank's
+loss is the global batch's, as JAX computes it inside one program; the
+gradient of a rank reaches its own samples only, and the train step sums
+the gradients over the ranks.  On one rank nothing changes.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ from ..losses.focal import sigmoid_focal_loss_elements
 from ..models.polyphonic import ModelOutput
 from ..ops.cuda.mask_loss import IGNORE_LABEL, mask_loss_stats
 from ..ops.resize import resize_bilinear
+from ..parallel.mesh import data_world, global_sums
 from .assign import (AssignResult, assignment_cost, focal_cls_cost, mask_dice_costs_stacked,
                      solve_assignments_lockstep)
 from .targets import StageTargets, build_seg_target, build_stage_targets
@@ -129,13 +137,14 @@ def _mask_dice_rank_losses_stacked(cfg, mask_logits: torch.Tensor, targets: Stag
     stats = stats.reshape(s, b, 2)
     dice_abc = dice_abc.reshape(s, b, 3, q)
 
-    denom = torch.clamp(torch.einsum("sbq,b->s", pos, valid.sum(dim=(1, 2))), min=1.0)
-    mask_vec = cfg.loss_mask_weight * stats[..., 0].sum(dim=1) / denom
     a, bb, cc = dice_abc[:, :, 0], dice_abc[:, :, 1] + 1e-3, dice_abc[:, :, 2] + 1e-3
     dice = 1.0 - 2.0 * a / (bb + cc)  # (S, B, Q')
-    num_pos = torch.clamp(pos.sum(dim=(1, 2)), min=1.0)
-    dice_vec = cfg.loss_dice_weight * (dice * pos).sum(dim=(1, 2)) / num_pos
-    rank_vec = cfg.loss_rank_weight * stats[..., 1].sum(dim=1) / (b * h * w)
+    denom, mask_sum, pos_sum, dice_sum, rank_sum = global_sums(
+        torch.einsum("sbq,b->s", pos, valid.sum(dim=(1, 2))), stats[..., 0].sum(dim=1),
+        pos.sum(dim=(1, 2)), (dice * pos).sum(dim=(1, 2)), stats[..., 1].sum(dim=1))
+    mask_vec = cfg.loss_mask_weight * mask_sum / torch.clamp(denom, min=1.0)
+    dice_vec = cfg.loss_dice_weight * dice_sum / torch.clamp(pos_sum, min=1.0)
+    rank_vec = cfg.loss_rank_weight * rank_sum / (b * data_world() * h * w)
     for i, p in enumerate(prefixes):
         losses[f"{p}_mask"] = mask_vec[i]
         losses[f"{p}_dice"] = dice_vec[i]
@@ -180,15 +189,16 @@ def losses_from(cfg, out: ModelOutput, gt: GTSample, asg: Assignment
     seg_valid = (seg_target != nc).float()
     focal = sigmoid_focal_loss_elements(seg_logits, _onehot(seg_target, nc),
                                         cfg.focal_gamma, cfg.focal_alpha)
-    losses["loss_rpn_seg"] = cfg.loss_seg_weight * (
-        focal * seg_valid[..., None]).sum() / torch.clamp(seg_valid.sum(), min=1.0)
+    seg_sum, seg_n = global_sums((focal * seg_valid[..., None]).sum(), seg_valid.sum())
+    losses["loss_rpn_seg"] = cfg.loss_seg_weight * seg_sum / torch.clamp(seg_n, min=1.0)
 
     # the ASPP head's softmax CE, ignore_index = num_classes, over the same
     # dense target and x2 upsampled like seg_preds (K2, K2b)
     if out.rpn.aspp_seg_preds is not None:
         scaled_aspp = _upsample2(out.rpn.aspp_seg_preds).movedim(1, -1)
-        losses["loss_aspp_semseg"] = cfg.loss_aspp_weight * softmax_ce_ignore(
-            scaled_aspp, seg_target, ignore_index=nc)
+        # a mean over every position of the global batch
+        ce = global_sums(softmax_ce_ignore(scaled_aspp, seg_target, ignore_index=nc))[0]
+        losses["loss_aspp_semseg"] = cfg.loss_aspp_weight * ce / data_world()
 
     # masked depth over the Q rows of the (one) dense depth, and dense depth
     rpn_depth_logits = asg.scaled_depth0[:, None].expand(b, nq, *asg.scaled_depth0.shape[1:])
@@ -205,17 +215,20 @@ def losses_from(cfg, out: ModelOutput, gt: GTSample, asg: Assignment
                                   with_direct_row=True)
     prefixes = [f"s{i}_loss" for i in range(n_stages)]
     pos = targets.pos_row.float()  # (S, B, Q)
-    num_pos_vec = torch.clamp(pos.sum(dim=(1, 2)) / b, min=1.0)
     stage_cls = torch.stack([so.cls_score for so in out.stages]).float()
     focal = sigmoid_focal_loss_elements(stage_cls, _onehot(targets.labels, nc),
                                         cfg.focal_gamma, cfg.focal_alpha)
-    cls_vec = cfg.loss_cls_weight * (
-        (focal * targets.label_weights).sum(dim=(1, 2, 3)) / (num_pos_vec * b))
-    for i, p in enumerate(prefixes):
-        losses[f"{p}_cls"] = cls_vec[i]
     # top-1 accuracy on positive queries: a metric, not optimised
     correct = (torch.argmax(stage_cls, dim=-1) == targets.labels).float() * pos
-    acc_vec = 100.0 * correct.sum(dim=(1, 2)) / torch.clamp(pos.sum(dim=(1, 2)), min=1.0)
+    pos_sum, cls_sum, correct_sum = global_sums(
+        pos.sum(dim=(1, 2)), (focal * targets.label_weights).sum(dim=(1, 2, 3)),
+        correct.sum(dim=(1, 2)))
+    gb = b * data_world()  # the global batch
+    num_pos_vec = torch.clamp(pos_sum / gb, min=1.0)
+    cls_vec = cfg.loss_cls_weight * (cls_sum / (num_pos_vec * gb))
+    for i, p in enumerate(prefixes):
+        losses[f"{p}_cls"] = cls_vec[i]
+    acc_vec = 100.0 * correct_sum / torch.clamp(pos_sum, min=1.0)
     for i in range(n_stages):
         losses[f"s{i}_pos_acc"] = acc_vec[i]
 

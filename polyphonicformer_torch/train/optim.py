@@ -75,7 +75,9 @@ class Optimizer:
             if mult:
                 groups.setdefault(mult, []).append(p)
         self.params = [p for ps in groups.values() for p in ps]
+        self.names = {id(p): name for name, p in model.named_parameters()}
         self.max_norm = cfg.grad_clip_norm
+        self.model_group, self.sharded = None, None
         capturable = all(p.is_cuda for p in self.params)  # step counts on the card
         self.adamw = torch.optim.AdamW(
             [{"params": ps, "lr": cfg.lr * mult} for mult, ps in groups.items()],
@@ -93,14 +95,37 @@ class Optimizer:
     def zero_grad(self) -> None:
         self.adamw.zero_grad(set_to_none=True)
 
-    def clip_grads(self) -> torch.Tensor:
-        """optax ``clip_by_global_norm``: g * max_norm / norm when norm >=
-        max_norm.  Returns the norm before the clip, on the device."""
+    def set_model_parallel(self, sharded_names, group) -> None:
+        """Tensor parallelism: the parameters named in ``sharded_names`` are
+        this rank's shards over the model ``group``; :meth:`clip_grads`
+        then takes the norm of the full gradients."""
+        self.model_group = group
+        self.sharded = torch.tensor([self.names[id(p)] in sharded_names for p in self.params])
+
+    def grads(self) -> List[torch.Tensor]:
+        """Every trainable parameter's gradient, zeros where the backward
+        gave none."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in self.params]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        return [p.grad for p in self.params]
+
+    def clip_grads(self) -> torch.Tensor:
+        """optax ``clip_by_global_norm``: g * max_norm / norm when norm >=
+        max_norm.  Returns the norm before the clip, on the device.  Under
+        tensor parallelism the squares of the sharded gradients are summed
+        over the model group and the replicated ones counted once."""
+        grads = self.grads()
+        norms = torch.stack(torch._foreach_norm(grads))
+        if self.model_group is None:
+            norm = torch.linalg.vector_norm(norms)
+        else:
+            from ..parallel.mesh import all_reduce
+
+            sq = norms.square()
+            mask = self.sharded.to(sq.device)
+            shard_sq = all_reduce(torch.where(mask, sq, 0.0).sum(), self.model_group)
+            norm = torch.sqrt(torch.where(mask, 0.0, sq).sum() + shard_sq)
         scale = torch.where(norm < self.max_norm, 1.0, self.max_norm / norm)
         torch._foreach_mul_(grads, scale)
         return norm

@@ -15,6 +15,17 @@ advances on a skipped step too (the JAX schedule count does not).
 gradients, the norm the clip sees.  The JAX metric also counts the
 gradients of the frozen parameters, which the port does not compute
 (they have ``requires_grad=False``, as in the reference).
+
+Distributed (``parallel/mesh.py``): :func:`make_sharded_train_step` is
+the step of one data-parallel rank, its batch the rank's part of the
+global batch.  Every loss is the global batch's (``global_sums`` in the
+losses), the f32 gradients are summed over the data axis through one flat
+buffer in a fixed order, and the clip and the non-finite guard read the
+summed values, so every rank takes the same update and holds the same
+bits.  :func:`make_tp_train_setup` adds the model axis: a Swin backbone
+sharded by heads (``models/swin.py``), its replicated gradients averaged
+and its bias tables' summed over the model axis, the clip's norm over
+the full gradients (``optim.Optimizer.clip_grads``).
 """
 from __future__ import annotations
 
@@ -25,7 +36,9 @@ from typing import Dict, Tuple
 import torch
 
 from ..data.structures import TrainBatch
-from ..models.polyphonic import PolyphonicFormer, init_weights
+from ..models.polyphonic import PolyphonicFormer, build_model, init_weights
+from ..parallel.mesh import Mesh, all_reduce_flat, broadcast_module, data_parallel_losses
+from ..parallel.tensor_parallel import model_parallel, param_layout
 from .losses import compute_losses
 from .optim import Optimizer
 from .video_losses import video_forward_losses
@@ -61,8 +74,32 @@ def normalize_uint8_image(img: torch.Tensor, mean, std) -> torch.Tensor:
     return torch.stack([(x[..., c] - mean[c]) / std[c] for c in range(3)], dim=-1)
 
 
+def _gradient_reducer(model: PolyphonicFormer, optimizer: Optimizer, mesh: Mesh):
+    """reduce() of the f32 gradients of one step on ``mesh``: over the model
+    axis the replicated ones averaged (equal on every model rank but for
+    the order of a card's sums) and the partial ones (bias tables) summed;
+    then every one summed over the data axis.  One flat buffer an axis, in
+    the optimizer's order."""
+    layout = param_layout(model)
+    names = [optimizer.names[id(p)] for p in optimizer.params]
+    if mesh.num_model > 1:
+        optimizer.set_model_parallel({n for n, kind in layout.items() if kind == "sharded"},
+                                     mesh.model_group)
+    unsharded = [i for i, n in enumerate(names) if layout[n] != "sharded"]
+    replicated = [i for i in unsharded if layout[names[i]] == "replicated"]
+
+    def reduce() -> None:
+        grads = optimizer.grads()
+        if mesh.num_model > 1:
+            torch._foreach_mul_([grads[i] for i in replicated], 1.0 / mesh.num_model)
+            all_reduce_flat([grads[i] for i in unsharded], mesh.model_group)
+        all_reduce_flat(grads, mesh.data_group)
+
+    return reduce
+
+
 def make_train_step(model: PolyphonicFormer, cfg, optimizer: Optimizer,
-                    nan_guard: bool = True, video: bool = False):
+                    nan_guard: bool = True, video: bool = False, mesh: Mesh | None = None):
     """step(state, batch) -> (state, metrics): the loss dict plus
     ``total_loss``, ``grad_norm`` and (with ``nan_guard``)
     ``skipped_nonfinite``, all device tensors.  ``cfg``: an
@@ -76,7 +113,11 @@ def make_train_step(model: PolyphonicFormer, cfg, optimizer: Optimizer,
     bf16 copy of the model (parameters, frozen statistics and images cast
     to bf16, as the JAX step casts them), refreshed from the f32 master
     weights each step; its gradients, cast to f32, are the master weights'
-    gradients (the cast's own gradient is the cast back)."""
+    gradients (the cast's own gradient is the cast back).
+
+    ``mesh``: the step of one rank of a distributed job; use
+    :func:`make_sharded_train_step`, which also makes the ranks' weights
+    equal first."""
     if video and not cfg.model.with_track:
         raise ValueError("video training needs a model with a track head (with_track)")
     half = None
@@ -84,6 +125,8 @@ def make_train_step(model: PolyphonicFormer, cfg, optimizer: Optimizer,
         half = copy.deepcopy(model).to(torch.bfloat16)
         pairs = [(h, p) for h, p in zip(half.parameters(), model.parameters())
                  if p.requires_grad]
+
+    reduce = None if mesh is None else _gradient_reducer(model, optimizer, mesh)
 
     def prep(image):
         """A batch image normalised (uint8) and cast (bf16); None stays None."""
@@ -104,14 +147,17 @@ def make_train_step(model: PolyphonicFormer, cfg, optimizer: Optimizer,
                 torch._foreach_copy_([h for h, _ in pairs], [p for _, p in pairs])
             half.zero_grad(set_to_none=True)
             net = half
-        if video:
-            total, losses = video_forward_losses(net, cfg.model, batch)
-        else:
-            total, losses = compute_losses(cfg.model, net(batch.image), batch.gt)
+        with data_parallel_losses(mesh):
+            if video:
+                total, losses = video_forward_losses(net, cfg.model, batch)
+            else:
+                total, losses = compute_losses(cfg.model, net(batch.image), batch.gt)
         total.backward()
         if half is not None:
             for h, p in pairs:
                 p.grad = None if h.grad is None else h.grad.float()
+        if reduce is not None:
+            reduce()
         gnorm = optimizer.clip_grads()
         metrics: Dict[str, torch.Tensor] = {k: v.detach() for k, v in losses.items()}
         metrics["total_loss"] = total.detach()
@@ -128,3 +174,30 @@ def make_train_step(model: PolyphonicFormer, cfg, optimizer: Optimizer,
         return dataclasses.replace(state, step=state.step + 1), metrics
 
     return step
+
+
+def make_sharded_train_step(model: PolyphonicFormer, cfg, optimizer: Optimizer, mesh: Mesh,
+                            nan_guard: bool = True, video: bool = False):
+    """The train step of one rank on ``mesh`` (the counterpart of the JAX
+    ``make_sharded_train_step``): step(state, local_batch), the local batch
+    this rank's part of the global batch (``parallel.mesh.local_slice``).
+    First every parameter and buffer comes from data index 0 of the rank's
+    data group, so the ranks start equal.  A W-rank step at local batch b
+    is the one-rank step at batch W x b; every rank returns the same
+    metrics and holds the same parameters after it."""
+    broadcast_module(model, mesh.data_group)
+    return make_train_step(model, cfg, optimizer, nan_guard=nan_guard, video=video, mesh=mesh)
+
+
+def make_tp_train_setup(cfg, mesh: Mesh, generator: torch.Generator | None = None,
+                        state_dict=None, video: bool = False, steps_per_epoch: int = 1000):
+    """Tensor-parallel training over a (data, model) mesh (the JAX
+    ``make_tp_train_setup``): returns (state, step, optimizer) of this rank.
+    The model is ``build_model`` of ``cfg.model`` (``shard_backbone``) on
+    the mesh's device with this rank's shards, from the full weights of
+    ``generator`` or ``state_dict``; AdamW's moments take the shards'
+    shapes; batches split over the data axis (:func:`make_sharded_train_step`)."""
+    model = build_model(cfg.model, mesh.device, generator=generator, state_dict=state_dict,
+                        tp=model_parallel(mesh))
+    state, opt = create_train_state(model, cfg, None, steps_per_epoch, device=mesh.device)
+    return state, make_sharded_train_step(state.model, cfg, opt, mesh, video=video), opt

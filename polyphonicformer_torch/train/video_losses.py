@@ -21,6 +21,7 @@ from ..losses.track import l2_aux_loss, multi_pos_cross_entropy
 from ..models.polyphonic import PolyphonicFormer
 from ..ops.resize import resize_bilinear
 from ..ops.roi_align import boxes_mad_from_marginals, upsampled_support_marginals
+from ..parallel.mesh import data_world, global_sums
 from .losses import compute_losses
 
 
@@ -47,8 +48,11 @@ def track_pair_losses(cfg, key_embeds: torch.Tensor, ref_embeds: torch.Tensor,
         la.append(l2_aux_loss(cos, target, pair_valid, neg_pos_ub=th.aux_neg_pos_ub,
                               pos_margin=th.aux_pos_margin, neg_margin=th.aux_neg_margin,
                               hard_mining=th.aux_hard_mining))
-    return {"loss_track": th.loss_track_weight * torch.stack(lt).mean(),
-            "loss_track_aux": th.loss_aux_weight * torch.stack(la).mean()}
+    lt, la = torch.stack(lt), torch.stack(la)
+    lt_sum, la_sum = global_sums(lt.sum(), la.sum())  # means over the global batch
+    gb = lt.numel() * data_world()
+    return {"loss_track": th.loss_track_weight * (lt_sum / gb),
+            "loss_track_aux": th.loss_aux_weight * (la_sum / gb)}
 
 
 def gt_track_masks(gt: GTSample, pad_hw) -> torch.Tensor:

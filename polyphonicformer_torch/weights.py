@@ -24,6 +24,14 @@ JAX -> port: :func:`from_jax_variables`.  Port -> JAX:
 dict of gradients, which share the parameters' keys).  The JAX CLIs'
 checkpoints (a ``.pkl`` of those variables as numpy arrays) load with
 :func:`load_variables`.
+
+Tensor parallelism: :func:`shard_state_dict` turns a full state dict into
+the shard of one rank of the model axis (a Swin backbone with
+``shard_backbone``: qkv rows by heads, proj columns by heads, the FFN's
+hidden units; ``models/swin.py``), :func:`gather_state_dict` the shards
+back into the full dict.  So JAX variables load into a tensor-parallel
+rank through ``shard_state_dict(from_jax_variables(...))``, and a
+tensor-parallel state saves as one full state dict.
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ import numpy as np
 import torch
 
 from .configs import STDC_LAYERS, SWIN_SPECS
+from .parallel.tensor_parallel import split_range
 
 _STAGE_BLOCKS = {"resnet50": (3, 4, 6, 3)}
 _SWIN_DEPTHS = {name: spec[1] for name, spec in SWIN_SPECS.items()}
@@ -419,3 +428,70 @@ def load_variables(path) -> Dict:
     pickled code."""
     with open(path, "rb") as f:
         return _NumpyUnpickler(f).load()
+
+
+def swin_shard_specs(embed: int, depths, heads, prefix: str = "backbone.") -> Dict:
+    """Key -> (how, count, unit) of every sharded tensor of a Swin backbone
+    (``models/swin.py``) under ``prefix``: ``qkv`` rows (3, heads, head
+    dim), or ``cols`` / ``rows`` in ``count`` parts of ``unit`` elements
+    (heads x head dim, hidden units x 1)."""
+    out = {}
+    for s, (depth, h) in enumerate(zip(depths, heads)):
+        dim = embed * 2 ** s
+        hd, hidden = dim // h, 4 * dim
+        for b in range(depth):
+            p = f"{prefix}stages.{s}.blocks.{b}"
+            for leaf in ("weight", "bias"):
+                out[f"{p}.attn.w_msa.qkv.{leaf}"] = ("qkv", h, hd)
+                out[f"{p}.ffn.layers.0.0.{leaf}"] = ("rows", hidden, 1)
+            out[f"{p}.attn.w_msa.proj.weight"] = ("cols", h, hd)
+            out[f"{p}.ffn.layers.1.weight"] = ("cols", hidden, 1)
+    return out
+
+
+def _tp_specs(cfg) -> Dict:
+    if not cfg.shard_backbone or cfg.backbone not in SWIN_SPECS:
+        return {}
+    return swin_shard_specs(*SWIN_SPECS[cfg.backbone])
+
+
+def shard_state_dict(sd: Dict, cfg, rank: int, num_model: int, specs=None) -> Dict:
+    """Rank ``rank``'s shard of a full state dict (tensors or arrays) over
+    ``num_model`` model ranks; unsharded entries are the full ones.  The
+    sharded keys: ``specs`` (:func:`swin_shard_specs`), by default those of
+    ``cfg``'s backbone with ``shard_backbone``."""
+    specs = _tp_specs(cfg) if specs is None else specs
+    out = {}
+    for key, t in sd.items():
+        if key not in specs or num_model == 1:
+            out[key] = t
+            continue
+        how, count, unit = specs[key]
+        start, n = split_range(count, num_model, rank)
+        if how == "qkv":
+            out[key] = t.reshape(3, count, unit, *t.shape[1:])[:, start:start + n].reshape(
+                3 * n * unit, *t.shape[1:])
+        else:
+            axis = 0 if how == "rows" else 1
+            out[key] = t[(slice(None),) * axis + (slice(start * unit, (start + n) * unit),)]
+    return out
+
+
+def gather_state_dict(shards, cfg, specs=None) -> Dict:
+    """The full state dict from the model ranks' shards, in rank order
+    (tensors or arrays; the unsharded entries are the first shard's)."""
+    specs = _tp_specs(cfg) if specs is None else specs
+    cat = torch.cat if torch.is_tensor(next(iter(shards[0].values()))) else np.concatenate
+    out = {}
+    for key, t in shards[0].items():
+        if key not in specs or len(shards) == 1:
+            out[key] = t
+            continue
+        how, count, unit = specs[key]
+        parts = [sh[key] for sh in shards]
+        if how == "qkv":
+            parts = [p.reshape(3, -1, unit, *p.shape[1:]) for p in parts]
+            out[key] = cat(parts, 1).reshape(3 * count * unit, *t.shape[1:])
+        else:
+            out[key] = cat(parts, 0 if how == "rows" else 1)
+    return out

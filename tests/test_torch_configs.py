@@ -40,3 +40,24 @@ def test_training_presets_are_ported():
     cfg = preset("image_r50_2x")
     assert cfg.model.remat_backbone and not cfg.model.with_track
     assert cfg.data.img_size == (1024, 2048)
+
+
+def test_parallel_config_and_shard_backbone_match_jax():
+    """``ParallelConfig`` field for field, ``ExperimentConfig.parallel`` and
+    ``ModelConfig.shard_backbone`` with the JAX defaults."""
+    from polyphonicformer_tpu.configs import ExperimentConfig as JaxExperimentConfig
+    from polyphonicformer_tpu.configs import ParallelConfig as JaxParallelConfig
+    from polyphonicformer_torch.configs import ExperimentConfig, ParallelConfig
+
+    assert [f.name for f in dataclasses.fields(ParallelConfig)] == \
+        [f.name for f in dataclasses.fields(JaxParallelConfig)]
+    _assert_fields_equal(ParallelConfig(), JaxParallelConfig(), "parallel")
+    _assert_fields_equal(ParallelConfig(num_data=2, num_model=4),
+                         JaxParallelConfig(num_data=2, num_model=4), "parallel")
+    _assert_fields_equal(ExperimentConfig().parallel, JaxExperimentConfig().parallel,
+                         "experiment.parallel")
+    for name in PRESETS:
+        _assert_fields_equal(preset(name).parallel, get_preset(name).parallel,
+                             f"{name}.parallel")
+        assert model_preset(name).shard_backbone is False
+    assert model_preset("video_swinl", shard_backbone=True).shard_backbone

@@ -160,7 +160,9 @@ def test_import_leaves_jax_out():
     the machine with the card has none of them."""
     new = ["tools.convert_torch_ckpt", "data.label_shift", "models.aspp", "models.stdc",
            "models.aligned_fpn", "ops.grid_sample", "ops.deform_conv", "tools.export",
-           "tools.flops", "tools.parity_check", "utils.profiling", "ops.device_tables"]
+           "tools.flops", "tools.parity_check", "utils.profiling", "ops.device_tables",
+           "parallel", "parallel.mesh", "parallel.tensor_parallel", "tools.launch",
+           "tools.dist_check"]
     code = ("import importlib, pkgutil, sys, polyphonicformer_torch as p; "
             "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]; "
             f"missing = [m for m in {new!r} if 'polyphonicformer_torch.' + m not in mods]; "
