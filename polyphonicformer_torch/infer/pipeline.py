@@ -25,6 +25,7 @@ from ..models.polyphonic import PolyphonicFormer
 from ..ops.cuda.map_render import render_maps
 from ..ops.resize import resize_bilinear
 from ..ops.roi_align import boxes_mad_from_marginals
+from ..utils.profiling import span
 from .panoptic import PanopticResult, fuse_panoptic
 from .tracker import TrackerState, init_tracker_state, tracker_step
 
@@ -89,20 +90,23 @@ class _Heads(NamedTuple):
 def _heads(model, images, compute_dtype):
     """Network forward over the batch in ``compute_dtype``; the outputs come
     back in f32, each x2 upsample one launch for the whole batch."""
-    model = cast_model(model, compute_dtype)
-    fpn = model.extract_feat(images.to(compute_dtype))
-    out = model.forward_heads(fpn, with_aspp=False)
-    last = out.stages[-1]
-    return model, fpn, _Heads(
-        cls_probs=torch.sigmoid(last.cls_score.float()),
-        mask_logits=_upsample2(last.mask_preds.float()),
-        depth_logits=_upsample2(last.depth_preds.float()),
-        depth_init=_upsample2(out.rpn.depth_pred.float()))
+    with span("serve/network"):
+        model = cast_model(model, compute_dtype)
+        fpn = model.extract_feat(images.to(compute_dtype))
+        out = model.forward_heads(fpn, with_aspp=False)
+        last = out.stages[-1]
+        return model, fpn, _Heads(
+            cls_probs=torch.sigmoid(last.cls_score.float()),
+            mask_logits=_upsample2(last.mask_preds.float()),
+            depth_logits=_upsample2(last.depth_preds.float()),
+            depth_init=_upsample2(out.rpn.depth_pred.float()))
 
 
 def _fuse(cfg, heads: _Heads, b: int, out_hw, fusion_dtype, **kw) -> PanopticResult:
-    return fuse_panoptic(cfg, heads.cls_probs[b], heads.mask_logits[b], heads.depth_logits[b],
-                         heads.depth_init[b], out_hw, fusion_dtype=fusion_dtype, **kw)
+    with span("serve/fuse"):
+        return fuse_panoptic(cfg, heads.cls_probs[b], heads.mask_logits[b],
+                             heads.depth_logits[b], heads.depth_init[b], out_hw,
+                             fusion_dtype=fusion_dtype, **kw)
 
 
 class _Detections(NamedTuple):
@@ -123,15 +127,16 @@ def _detections(cfg, pano: PanopticResult) -> _Detections:
         out[:take] = arr[:take]
         return out
 
-    thing_keep = pano.keep & pano.is_thing
-    det_valid = to_d(thing_keep)
-    det_rowm = to_d(pano.row_marg) * det_valid[:, None]
-    det_colm = to_d(pano.col_marg) * det_valid[:, None]
-    boxes_yx = _tight_boxes_from_any(det_rowm > 0, det_colm > 0)
-    return _Detections(
-        thing_keep=thing_keep, valid=det_valid, labels=to_d(pano.labels),
-        boxes=torch.cat([boxes_yx.clamp(min=0.0), to_d(pano.scores)[:, None]], dim=1),
-        roi_boxes=boxes_mad_from_marginals(det_rowm, det_colm))
+    with span("serve/detections"):
+        thing_keep = pano.keep & pano.is_thing
+        det_valid = to_d(thing_keep)
+        det_rowm = to_d(pano.row_marg) * det_valid[:, None]
+        det_colm = to_d(pano.col_marg) * det_valid[:, None]
+        boxes_yx = _tight_boxes_from_any(det_rowm > 0, det_colm > 0)
+        return _Detections(
+            thing_keep=thing_keep, valid=det_valid, labels=to_d(pano.labels),
+            boxes=torch.cat([boxes_yx.clamp(min=0.0), to_d(pano.scores)[:, None]], dim=1),
+            roi_boxes=boxes_mad_from_marginals(det_rowm, det_colm))
 
 
 def _frame_id(frame_id, dev) -> torch.Tensor:
@@ -147,22 +152,24 @@ def _track_and_render(cfg, pano: PanopticResult, det: _Detections, embeds: torch
     d = cfg.tracker.max_detections
     kk = pano.instance_ids.shape[0]
     take = min(d, kk)
-    new_state, ids_sorted, order, kept_sorted = tracker_step(
-        cfg.tracker, tracker_state, det.boxes, det.labels, embeds, det.valid, frame_id)
-    # sorted ids back to candidate order; reference: ids + 1, -1 / -2 -> 0
-    ids_by_det = torch.zeros((d,), dtype=torch.int32, device=dev)
-    ids_by_det[order] = torch.where(kept_sorted & (ids_sorted >= 0), ids_sorted + 1,
-                                    torch.zeros_like(ids_sorted))
-    thing_keep = det.thing_keep
-    overflow = (thing_keep.sum() - thing_keep[:take].sum()).to(torch.int32)
-    cand_track_id = torch.zeros((kk,), dtype=torch.int32, device=dev)
-    cand_track_id[:take] = ids_by_det[:take]
-    ids_full = cand_track_id * thing_keep.to(torch.int32)
+    with span("serve/track"):
+        new_state, ids_sorted, order, kept_sorted = tracker_step(
+            cfg.tracker, tracker_state, det.boxes, det.labels, embeds, det.valid, frame_id)
+        # sorted ids back to candidate order; reference: ids + 1, -1 / -2 -> 0
+        ids_by_det = torch.zeros((d,), dtype=torch.int32, device=dev)
+        ids_by_det[order] = torch.where(kept_sorted & (ids_sorted >= 0), ids_sorted + 1,
+                                        torch.zeros_like(ids_sorted))
+        thing_keep = det.thing_keep
+        overflow = (thing_keep.sum() - thing_keep[:take].sum()).to(torch.int32)
+        cand_track_id = torch.zeros((kk,), dtype=torch.int32, device=dev)
+        cand_track_id[:take] = ids_by_det[:take]
+        ids_full = cand_track_id * thing_keep.to(torch.int32)
 
     nr = kk if pano.n_render is None else pano.n_render
-    semantic, panoptic, depth, track_map = render_maps(
-        pano.pix_arg, pano.depth_pix, pano.depth_basic, pano.labels[:nr],
-        pano.seg_ids[:nr], pano.keep[:nr], ids_full[:nr], cfg.num_classes)
+    with span("serve/render"):
+        semantic, panoptic, depth, track_map = render_maps(
+            pano.pix_arg, pano.depth_pix, pano.depth_basic, pano.labels[:nr],
+            pano.seg_ids[:nr], pano.keep[:nr], ids_full[:nr], cfg.num_classes)
     pano = pano._replace(semantic=semantic, panoptic=panoptic, depth=depth)
     return FrameOutput(semantic=semantic, track_map=track_map, depth=depth,
                        depth_basic=pano.depth_basic, panoptic=panoptic, pano=pano,
@@ -177,13 +184,16 @@ def video_frame_step(model: PolyphonicFormer, cfg, image: torch.Tensor,
     """image: (1, H, W, 3) normalized and padded; out_hw: original size.
     compute_dtype bfloat16 runs the network in bf16; the tracker runs in
     f32.  fusion_dtype bfloat16 takes the K3 fusion kernel."""
-    model, fpn, heads = _heads(model, image, compute_dtype)
-    pano = _fuse(cfg, heads, 0, out_hw, fusion_dtype, emit_marginals=True, defer_maps=True)
-    det = _detections(cfg, pano)
-    embeds = model.forward_track_embeds(fpn, None, det.valid[None],
-                                        boxes=det.roi_boxes[None])[0].float()
-    return _track_and_render(cfg, pano, det, embeds, tracker_state,
-                             _frame_id(frame_id, embeds.device))
+    with span("serve/step"):
+        model, fpn, heads = _heads(model, image, compute_dtype)
+        pano = _fuse(cfg, heads, 0, out_hw, fusion_dtype, emit_marginals=True,
+                     defer_maps=True)
+        det = _detections(cfg, pano)
+        with span("serve/track_embeds"):
+            embeds = model.forward_track_embeds(fpn, None, det.valid[None],
+                                                boxes=det.roi_boxes[None])[0].float()
+        return _track_and_render(cfg, pano, det, embeds, tracker_state,
+                                 _frame_id(frame_id, embeds.device))
 
 
 def make_video_step(model: PolyphonicFormer, cfg, out_hw, compute_dtype=torch.float32,
@@ -234,19 +244,23 @@ def batched_video_step(model: PolyphonicFormer, cfg, images: torch.Tensor,
     (JAX ``vmap``s them), with each clip's tracker state its own; one
     batched track-head forward.  Returns the FrameOutput and TrackerState
     with a leading clip axis."""
-    model, fpn, heads = _heads(model, images, compute_dtype)
-    batch = images.shape[0]
-    panos = [_fuse(cfg, heads, b, out_hw, fusion_dtype, emit_marginals=True, defer_maps=True)
-             for b in range(batch)]
-    dets = [_detections(cfg, pano) for pano in panos]
-    embeds = model.forward_track_embeds(fpn, None, torch.stack([d.valid for d in dets]),
-                                        boxes=torch.stack([d.roi_boxes for d in dets])).float()
-    dev = embeds.device
-    outs, states = zip(*(
-        _track_and_render(cfg, panos[b], dets[b], embeds[b], _clip_state(tracker_states, b),
-                          _frame_id(frame_ids[b], dev))
-        for b in range(batch)))
-    return _stack(list(outs)), _stack(list(states))
+    with span("serve/step"):
+        model, fpn, heads = _heads(model, images, compute_dtype)
+        batch = images.shape[0]
+        panos = [_fuse(cfg, heads, b, out_hw, fusion_dtype, emit_marginals=True,
+                       defer_maps=True) for b in range(batch)]
+        dets = [_detections(cfg, pano) for pano in panos]
+        with span("serve/track_embeds"):
+            embeds = model.forward_track_embeds(
+                fpn, None, torch.stack([d.valid for d in dets]),
+                boxes=torch.stack([d.roi_boxes for d in dets])).float()
+        dev = embeds.device
+        outs, states = zip(*(
+            _track_and_render(cfg, panos[b], dets[b], embeds[b],
+                              _clip_state(tracker_states, b), _frame_id(frame_ids[b], dev))
+            for b in range(batch)))
+        with span("serve/stack"):
+            return _stack(list(outs)), _stack(list(states))
 
 
 def make_batched_video_step(model: PolyphonicFormer, cfg, out_hw, compute_dtype=torch.float32,
@@ -294,9 +308,10 @@ def image_step(model: PolyphonicFormer, cfg, image: torch.Tensor, out_hw: Tuple[
                compute_dtype=torch.float32, fusion_dtype=torch.float32) -> PanopticResult:
     """Image-mode inference of image (1, H, W, 3): the PanopticResult with
     the maps."""
-    _, _, heads = _heads(model, image, compute_dtype)
-    return _fuse(cfg, heads, 0, tuple(out_hw), fusion_dtype,
-                 emit_marginals=fusion_dtype != torch.float32)
+    with span("serve/step"):
+        _, _, heads = _heads(model, image, compute_dtype)
+        return _fuse(cfg, heads, 0, tuple(out_hw), fusion_dtype,
+                     emit_marginals=fusion_dtype != torch.float32)
 
 
 def make_image_step(model: PolyphonicFormer, cfg, out_hw, compute_dtype=torch.float32,

@@ -16,6 +16,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs import STDC_LAYERS, SWIN_SPECS
+from ..utils.profiling import span
 from .fpn import FPN
 from .kernel_head import KernelHead, RPNOutput
 from .kernel_update_head import KernelUpdateHead, StageOutput
@@ -77,18 +78,28 @@ class PolyphonicFormer(nn.Module):
         """img: (B, H, W, 3) normalized.  Returns FPN P2..P5, NCHW."""
         x = img.permute(0, 3, 1, 2)
         if self.remat_backbone and torch.is_grad_enabled():
-            return self.neck(checkpoint(self.backbone, x, use_reentrant=False))
-        return self.neck(self.backbone(x))
+            feats = checkpoint(self._backbone, x, use_reentrant=False)
+        else:
+            feats = self._backbone(x)
+        with span("model/neck"):
+            return self.neck(feats)
+
+    def _backbone(self, x: torch.Tensor):
+        # inside what the remat recomputes, so the backward shows it too
+        with span("model/backbone"):
+            return self.backbone(x)
 
     def forward_heads(self, fpn_feats, with_aspp: bool = True) -> ModelOutput:
         """``with_aspp=False``: no ASPP map (serving never reads it)."""
-        rpn = self.rpn_head(fpn_feats, with_aspp)
+        with span("model/kernel_head"):
+            rpn = self.rpn_head(fpn_feats, with_aspp)
         proposal_feats, mask_preds = rpn.proposal_feats, rpn.mask_preds
         depth_proposal = rpn.depth_proposal
         stages = []
         for head in self.roi_head.mask_head:
-            out = head(rpn.x_feats, proposal_feats, mask_preds, depth_proposal,
-                       rpn.depth_feats)
+            with span("model/stage"):
+                out = head(rpn.x_feats, proposal_feats, mask_preds, depth_proposal,
+                           rpn.depth_feats)
             stages.append(out)
             proposal_feats, mask_preds = out.obj_feats, out.mask_preds
             depth_proposal = out.depth_kernels
@@ -105,7 +116,8 @@ class PolyphonicFormer(nn.Module):
         masks: (B, M, H, W) binary masks at input resolution, or None when
         ``boxes`` is given; mask_valid: (B, M); boxes: optional (B, M, 4)
         RoI boxes, which skip the mask-to-box reduction."""
-        return self.track_head(fpn_feats, masks, mask_valid, boxes)
+        with span("model/track_head"):
+            return self.track_head(fpn_feats, masks, mask_valid, boxes)
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:

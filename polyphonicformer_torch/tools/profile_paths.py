@@ -19,9 +19,10 @@ Units of work, each at full width with seeded random weights:
 
 For each: the median wall time of warm runs (host clock closed by
 ``torch.cuda.synchronize()``, not profiled) and peak device memory; then
-one run under ``torch.profiler`` with CUDA activity: the device's busy
-time (the union of the intervals of its kernels, copies and sets), the
-idle share of the unprofiled wall time that leaves, the number of kernels,
+one run under ``torch.profiler`` with CUDA activity: its own wall time
+(``profiled_wall_ms``, closed the same way), the device's busy time (the
+union of the intervals of its kernels, copies and sets), the idle share of
+the profiled run's wall that leaves, the number of kernels,
 the device time by kernel class, the ten longest kernels, and the device
 time and launches of each of the port's own kernels.  One JSON
 line per unit on standard output, then the card's name and power limit.
@@ -95,10 +96,13 @@ def measure(name: str, run, warm: int) -> dict:
         walls.append((time.perf_counter() - t0) * 1e3)
     wall = statistics.median(walls)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
+        profiled_wall = (time.perf_counter() - t0) * 1e3
     events = _device_events(prof)
     info = {"unit": name, "wall_ms": walls, "median_wall_ms": wall,
+            "profiled_wall_ms": profiled_wall,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     if not events:  # the profiler did not trace the card
         info.update(device_busy_ms=None, idle_share=None, kernels=None)
@@ -113,7 +117,8 @@ def measure(name: str, run, warm: int) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     port = {k: (ms, n) for k, (ms, n) in by_name.items() if kernel_class(k) == "port"}
     info.update(
-        device_busy_ms=busy, idle_share=max(0.0, 1.0 - busy / wall), kernels=len(events),
+        device_busy_ms=busy, idle_share=max(0.0, 1.0 - busy / profiled_wall),
+        kernels=len(events),
         device_ms_by_class=dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
         top_kernels=[{"name": k[:100], "ms": ms, "count": n} for k, (ms, n) in top],
         port_kernels=[{"name": k[:100], "ms": ms, "count": n}

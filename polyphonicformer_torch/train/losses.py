@@ -37,6 +37,7 @@ from ..models.polyphonic import ModelOutput
 from ..ops.cuda.mask_loss import IGNORE_LABEL, mask_loss_stats
 from ..ops.resize import resize_bilinear
 from ..parallel.mesh import data_world, global_sums
+from ..utils.profiling import span
 from .assign import (AssignResult, assignment_cost, focal_cls_cost, mask_dice_costs_stacked,
                      solve_assignments_lockstep)
 from .targets import StageTargets, build_seg_target, build_stage_targets
@@ -251,4 +252,7 @@ def losses_from(cfg, out: ModelOutput, gt: GTSample, asg: Assignment
 def compute_losses(cfg, out: ModelOutput, gt: GTSample
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(total, loss dict) of one image-model forward; gt is batched."""
-    return losses_from(cfg, out, gt, assign(cfg, out, gt))
+    with span("train/assign"):
+        asg = assign(cfg, out, gt)
+    with span("train/losses"):
+        return losses_from(cfg, out, gt, asg)

@@ -39,6 +39,7 @@ from ..data.structures import TrainBatch
 from ..models.polyphonic import PolyphonicFormer, build_model, init_weights
 from ..parallel.mesh import Mesh, all_reduce_flat, broadcast_module, data_parallel_losses
 from ..parallel.tensor_parallel import model_parallel, param_layout
+from ..utils.profiling import span
 from .losses import compute_losses
 from .optim import Optimizer
 from .video_losses import video_forward_losses
@@ -139,39 +140,47 @@ def make_train_step(model: PolyphonicFormer, cfg, optimizer: Optimizer,
     def step(state: TrainState, batch: TrainBatch):
         if video and batch.ref_image is None:
             raise ValueError("a video train step needs a 2-frame batch (ref_image, ref_gt)")
-        batch = batch._replace(image=prep(batch.image), ref_image=prep(batch.ref_image))
-        optimizer.zero_grad()
-        net = model
-        if half is not None:
-            with torch.no_grad():
-                torch._foreach_copy_([h for h, _ in pairs], [p for _, p in pairs])
-            half.zero_grad(set_to_none=True)
-            net = half
-        with data_parallel_losses(mesh):
-            if video:
-                total, losses = video_forward_losses(net, cfg.model, batch)
-            else:
-                total, losses = compute_losses(cfg.model, net(batch.image), batch.gt)
-        total.backward()
-        if half is not None:
-            for h, p in pairs:
-                p.grad = None if h.grad is None else h.grad.float()
-        if reduce is not None:
-            reduce()
-        gnorm = optimizer.clip_grads()
-        metrics: Dict[str, torch.Tensor] = {k: v.detach() for k, v in losses.items()}
-        metrics["total_loss"] = total.detach()
-        metrics["grad_norm"] = gnorm
-        if nan_guard:
-            ok = torch.isfinite(total.detach()) & torch.isfinite(gnorm)
-            before = [t.clone() for t in optimizer.state()]
-        optimizer.step()
-        if nan_guard:
-            with torch.no_grad():
-                for new, old in zip(optimizer.state(), before):
-                    new.copy_(torch.where(ok, new, old))
-            metrics["skipped_nonfinite"] = (~ok).float()
-        return dataclasses.replace(state, step=state.step + 1), metrics
+        with span("train/step"):
+            with span("train/prep"):
+                batch = batch._replace(image=prep(batch.image), ref_image=prep(batch.ref_image))
+            optimizer.zero_grad()
+            net = model
+            if half is not None:
+                with span("train/cast"), torch.no_grad():
+                    torch._foreach_copy_([h for h, _ in pairs], [p for _, p in pairs])
+                half.zero_grad(set_to_none=True)
+                net = half
+            with span("train/forward_losses"), data_parallel_losses(mesh):
+                if video:
+                    total, losses = video_forward_losses(net, cfg.model, batch)
+                else:
+                    total, losses = compute_losses(cfg.model, net(batch.image), batch.gt)
+            with span("train/backward"):
+                total.backward()
+            if half is not None:
+                with span("train/grad_cast"):
+                    for h, p in pairs:
+                        p.grad = None if h.grad is None else h.grad.float()
+            if reduce is not None:
+                with span("train/reduce"):
+                    reduce()
+            with span("train/clip"):
+                gnorm = optimizer.clip_grads()
+            metrics: Dict[str, torch.Tensor] = {k: v.detach() for k, v in losses.items()}
+            metrics["total_loss"] = total.detach()
+            metrics["grad_norm"] = gnorm
+            if nan_guard:
+                with span("train/guard"):
+                    ok = torch.isfinite(total.detach()) & torch.isfinite(gnorm)
+                    before = [t.clone() for t in optimizer.state()]
+            with span("train/optimizer"):
+                optimizer.step()
+            if nan_guard:
+                with span("train/guard"), torch.no_grad():
+                    for new, old in zip(optimizer.state(), before):
+                        new.copy_(torch.where(ok, new, old))
+                    metrics["skipped_nonfinite"] = (~ok).float()
+            return dataclasses.replace(state, step=state.step + 1), metrics
 
     return step
 

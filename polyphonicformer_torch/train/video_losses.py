@@ -22,6 +22,7 @@ from ..models.polyphonic import PolyphonicFormer
 from ..ops.resize import resize_bilinear
 from ..ops.roi_align import boxes_mad_from_marginals, upsampled_support_marginals
 from ..parallel.mesh import data_world, global_sums
+from ..utils.profiling import span
 from .losses import compute_losses
 
 
@@ -79,12 +80,14 @@ def track_losses(model: PolyphonicFormer, cfg, batch: TrainBatch, key_feats, ref
     """The track losses of a 2-frame batch from both frames' FPN features:
     key and ref through one track-head call (its layers are per sample),
     the GT boxes of both from one marginal computation."""
-    b = batch.image.shape[0]
-    both_gt = _cat_gt(batch.gt, batch.ref_gt)
-    pair_feats = [torch.cat([k, r]) for k, r in zip(key_feats, ref_feats)]
-    embeds = model.forward_track_embeds(pair_feats, None, both_gt.thing_valid,
-                                        boxes=gt_track_boxes(both_gt, batch.image.shape[1:3]))
-    return track_pair_losses(cfg, embeds[:b], embeds[b:], batch.gt, batch.ref_gt)
+    with span("train/track_losses"):
+        b = batch.image.shape[0]
+        both_gt = _cat_gt(batch.gt, batch.ref_gt)
+        pair_feats = [torch.cat([k, r]) for k, r in zip(key_feats, ref_feats)]
+        embeds = model.forward_track_embeds(
+            pair_feats, None, both_gt.thing_valid,
+            boxes=gt_track_boxes(both_gt, batch.image.shape[1:3]))
+        return track_pair_losses(cfg, embeds[:b], embeds[b:], batch.gt, batch.ref_gt)
 
 
 def video_forward_losses(model: PolyphonicFormer, cfg, batch: TrainBatch

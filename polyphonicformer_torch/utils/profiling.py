@@ -4,6 +4,20 @@
 * ``trace_context(log_dir)`` wraps a code region in a ``torch.profiler``
   trace (the CPU, and the CUDA card where there is one) and writes it to
   ``log_dir`` as a Chrome trace (Perfetto, ``chrome://tracing``).
+* ``span(name)`` marks a part of a step for a running ``torch.profiler``:
+  ``with span("serve/fuse"): ...``.  While a profiler records it is a
+  ``torch.profiler.record_function`` range, on the clock of the device's
+  kernels and the CUDA runtime calls; otherwise one shared null context, so
+  a span costs the read of the profiler's flag.  Names are
+  ``<layer>/<part>``; every span of a step nests under its root,
+  ``serve/step`` or ``train/step``.  The spans: ``serve/`` ``step``,
+  ``network``, ``fuse``, ``detections``, ``track_embeds``, ``track``,
+  ``render``, ``stack`` (``infer/pipeline.py``); ``model/`` ``backbone``,
+  ``neck``, ``kernel_head``, ``stage``, ``track_head``
+  (``models/polyphonic.py``); ``train/`` ``step``, ``prep``, ``cast``,
+  ``forward_losses``, ``assign``, ``losses``, ``track_losses``,
+  ``backward``, ``grad_cast``, ``reduce``, ``clip``, ``guard``,
+  ``optimizer`` (``train/``).
 * ``StepTimer`` measures steady-state step latency with warmup and reports
   percentiles, with the JAX timer's warmup and ``summary()`` keys.  CUDA
   launches return before the card finishes, so the timer synchronizes its
@@ -18,6 +32,17 @@ import time
 from typing import Dict, List, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``record_function`` range named ``name`` while a torch profiler
+    records, else the shared null context."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 @contextlib.contextmanager

@@ -40,3 +40,48 @@ def test_kernel_class(name, cls):
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal without a card")
 def test_main_refuses_without_a_card():
     assert profile_paths.main() == 1
+
+
+class _Event:
+    def __init__(self, start, end):
+        from torch.autograd import DeviceType
+
+        self.device_type, self.is_user_annotation = DeviceType.CUDA, False
+        self.time_range = type("R", (), {"start": start, "end": end})()
+        self.name = "k"
+
+
+def test_idle_share_is_of_the_profiled_wall(monkeypatch):
+    """Unprofiled runs take 10 ms, the profiled one 40 ms; its kernels are
+    busy 30 ms (two overlapping and one apart): idle 1 - 30 / 40."""
+    clock = [0.0]
+    profiling = [False]
+
+    class _Profile:
+        def __init__(self, activities):
+            pass
+
+        def __enter__(self):
+            profiling[0] = True
+            return self
+
+        def __exit__(self, *exc):
+            profiling[0] = False
+
+        def events(self):
+            return [_Event(0, 15_000), _Event(5_000, 20_000), _Event(25_000, 35_000)]
+
+    def run():
+        clock[0] += 0.040 if profiling[0] else 0.010
+
+    monkeypatch.setattr(profile_paths.time, "perf_counter", lambda: clock[0])
+    monkeypatch.setattr(torch.profiler, "profile", _Profile)
+    for fn in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 2 ** 30)
+    info = profile_paths.measure("unit", run, warm=3)
+    assert info["median_wall_ms"] == pytest.approx(10.0)
+    assert info["profiled_wall_ms"] == pytest.approx(40.0)
+    assert info["device_busy_ms"] == pytest.approx(30.0)
+    assert info["idle_share"] == pytest.approx(0.25)
+    assert info["kernels"] == 3 and info["peak_mem_gib"] == 1.0
