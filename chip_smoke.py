@@ -91,7 +91,11 @@ tensor-parallel ``video_swinl`` bf16 over (data 1, model 2), K7/K8 on each
 rank's heads (a frame and a video train step against the one-card ones),
 (e) the sharded eval hook on phase 8's split and the training CLI on phase
 9's split, 2 steps and a resume; phase 3 holds K7/K8 at the local head
-counts of (d) too.
+counts of (d) too.  Phase 13 holds the serving tracker's kernel (K9,
+``poly::tracker_step``) to its plain version on the card at the serving
+shapes (4 clips; 0, 4 and 64 valid detections) and times it beside its
+byte and latency bounds; ``python3 chip_smoke.py tracker`` runs phases 1,
+2 and 13 alone.
 Phases 4 to 12 each count the kernel launches of their own run.  Any failed phase raises,
 so the exit code is not 0.  The last lines are the
 card, a JSON object of per-kernel results and the JSON result line
@@ -728,7 +732,103 @@ def mask_loss_rows(dev, gen, shape, sfx: str) -> list[dict]:
     return rows
 
 
-def main() -> int:
+# K9 at the serving shapes: 4 streams, TrackerConfig's capacities (D 64
+# detections, T 128 tracklets, BD 64 backdrops) and Swin-L's 256-wide
+# track embeddings; 0, 4 (the benchmark's frames keep 0-4) and 64 valid rows
+TRACKER_B, TRACKER_E, TRACKER_VALID = 4, 256, (0, 4, 64)
+
+
+def _tracker_frames(gen, n_valid: int, frames: int, dev) -> list:
+    """``frames`` frames of detections of TRACKER_B clips, each clip's D rows
+    drawn from its own pool of 96 objects (an embedding, a label, a moving
+    box), ``n_valid`` of them valid at random rows, scores uniform."""
+    import torch
+
+    from polyphonicformer_torch.configs import TrackerConfig
+
+    b, d, e, pool = TRACKER_B, TrackerConfig().max_detections, TRACKER_E, 96
+    emb = torch.randn((b, pool, e), generator=gen, device=dev) * 0.2
+    xy = torch.rand((b, pool, 2), generator=gen, device=dev) * 900
+    wh = torch.rand((b, pool, 2), generator=gen, device=dev) * 80 + 10
+    vel = torch.randn((b, pool, 2), generator=gen, device=dev) * 5
+    lab = torch.randint(0, 8, (b, pool), generator=gen, device=dev, dtype=torch.int32)
+    out = []
+    for f in range(frames):
+        pick = torch.rand((b, pool), generator=gen, device=dev).argsort(1)[:, :d]
+        at = lambda x: torch.gather(x, 1, pick[..., None].expand(-1, -1, x.shape[2]))  # noqa: E731
+        p = at(xy) + f * at(vel)
+        score = torch.rand((b, d, 1), generator=gen, device=dev)
+        valid = torch.rand((b, d), generator=gen, device=dev).argsort(1) < n_valid
+        out.append((torch.cat([p, p + at(wh), score], 2).contiguous(),
+                    torch.gather(lab, 1, pick),
+                    (at(emb) + torch.randn((b, d, e), generator=gen, device=dev) * 0.04),
+                    valid, torch.full((b,), f + 1, dtype=torch.int32, device=dev)))
+    return out
+
+
+def check_tracker(dev) -> list[dict]:
+    """Phase 13, K9 (``poly::tracker_step``) at the serving shapes with 0, 4
+    and 64 valid rows: 6 frames from fresh states, each frame's outputs and
+    new state equal to the plain version's on the card (cuBLAS products,
+    PyTorch's softmax) given the same state, one launch a call; then the
+    last frame timed beside its byte bound, its latency bound (the valid
+    rows x one warp argmax step over the T + BD columns, as K5's row
+    reckons it) and the plain version's time."""
+    import torch
+
+    from polyphonicformer_torch.configs import TrackerConfig
+    from polyphonicformer_torch.infer.tracker import init_tracker_state
+    from polyphonicformer_torch.ops.cuda import tracker
+    from polyphonicformer_torch.tools import kernel_probe
+
+    cfg = TrackerConfig()
+    gen = torch.Generator(device=dev).manual_seed(13)
+    one = init_tracker_state(cfg, TRACKER_E, dev)
+    cols = cfg.max_tracklets + cfg.max_detections * cfg.memo_backdrop_frames
+    step_us = kernel_probe.warp_step_us(dev, TRACKER_B, cols)
+    thr = [float(getattr(cfg, n)) for n in tracker.THRESHOLDS]
+    rows = []
+    for n_valid in TRACKER_VALID:
+        state = one.map(lambda x: torch.stack([x] * TRACKER_B))
+        matched = 0
+        for f, x in enumerate(_tracker_frames(gen, n_valid, 6, dev)):
+            args = (*(getattr(state, n) for n in tracker.FIELDS), *x, thr,
+                    cfg.memo_tracklet_frames, cfg.with_cats, cfg.match_metric)
+            launches = tracker.KERNEL.launches
+            got = tracker.tracker_step_op(*args)
+            _check("tracker launches", tracker.KERNEL.launches == launches + 1,
+                   f"{tracker.KERNEL.launches - launches} launches a call")
+            want = tracker.tracker_step_plain(*args)
+            torch.cuda.synchronize()
+            for name, g, w in zip(tracker.FIELDS + ("ids", "order", "kept"), got, want):
+                _exact(f"tracker_step v{n_valid} frame {f} {name}", g, w)
+            matched += int(((got[-3] >= 0) & (got[-3] < state.num_tracklets[:, None])).sum())
+            state = type(state)(*got[:len(tracker.FIELDS)])
+        ms = _time_ms(lambda: tracker.tracker_step_op(*args))
+        rows.append(dict(
+            name=f"tracker_step_v{n_valid}", kernel="tracker", route="cuda",
+            source="polyphonicformer_torch/csrc/tracker.cu", replaces=None, max_abs_err=0.0,
+            ms=ms, plain_ms=_time_ms(lambda: tracker.tracker_step_plain(*args), reps=3),
+            library_ms=None, valid_rows=n_valid, matched_rows=matched,
+            num_tracklets=state.num_tracklets.tolist(),
+            shape=f"B {TRACKER_B}, D {cfg.max_detections}, T {cfg.max_tracklets}, "
+                  f"BD {cols - cfg.max_tracklets}, E {TRACKER_E}, {n_valid} valid rows",
+            warp_argmax_step_us=step_us, latency_bound_us=n_valid * step_us,
+            latency_bound_share=n_valid * step_us / (ms * 1e3),
+            **_bound(_nbytes(*args[:len(tracker.FIELDS) + 5], *got))))
+    return rows
+
+
+def _print_tracker(rows) -> None:
+    for r in rows:
+        print(f"[13 tracker] {r['name']}: {r['shape']} | kernel {r['ms']:.4f} ms | plain "
+              f"{r['plain_ms']:.4f} ms | bound {r['bound_us']:.2f} us ({r['bound_by']}) | latency "
+              f"bound {r['latency_bound_us']:.2f} us ({r['valid_rows']} rows x "
+              f"{r['warp_argmax_step_us']:.4f} us) | matched rows {r['matched_rows']}, "
+              f"tracklets {r['num_tracklets']}", flush=True)
+
+
+def main(only_tracker: bool = False) -> int:
     import shutil
 
     import torch
@@ -767,6 +867,13 @@ def main() -> int:
            and any(k.startswith("mask_pool") for k in tc), f"HMMA/HGMMA per kernel {tc}")
     print(f"[2 build] tensor-core instructions (cuobjdump -sass): {json.dumps(tc)}", flush=True)
 
+    if only_tracker:
+        _print_tracker(check_tracker(dev))
+        print(f"card: {card}")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                "kind": torch.cuda.get_device_name(0),
+                                                "count": torch.cuda.device_count()}}))
+        return 0
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     rows = (check_kernels(dev, gen) + check_train_kernels(dev, gen)
@@ -815,10 +922,13 @@ def main() -> int:
         dist_info["phase_s"] = time.perf_counter() - t0
         print(f"[12 dist] {json.dumps(dist_info)}", flush=True)
         done("phase 12")
+        tracker_rows = check_tracker(dev)
+        _print_tracker(tracker_rows)
+        done("phase 13")
     finally:
         shutil.rmtree(_eval_dir(), ignore_errors=True)
         shutil.rmtree(_train_dir(), ignore_errors=True)
-    for r in rows:
+    for r in rows + tracker_rows:
         kernel = r.pop("kernel", r["name"])  # rows at several shapes share a kernel
         by_path = {"serve": serve_launches.get(kernel, 0),
                    "train": train_launches.get(kernel, 0),
@@ -834,14 +944,16 @@ def main() -> int:
         _check(f"launches {r['name']}", r["launches"] > 0, "never launched on a main path")
 
     print(f"card: {card}")
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows, "tracker": tracker_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                             "kind": torch.cuda.get_device_name(0),
                                             "count": torch.cuda.device_count()}}))
     return 0
 
 
-PER_FRAME = {"mask_pool": 7, "upsample2": 4, "phase_fusion": 1, "map_render": 1}
+# an image step's launches; a video frame adds its tracker step (K9)
+IMAGE_PER_FRAME = {"mask_pool": 7, "upsample2": 4, "phase_fusion": 1, "map_render": 1}
+PER_FRAME = {**IMAGE_PER_FRAME, "tracker": 1}
 # Swin-L: K8 in the 4 blocks of stages 0-1 (6 and 12 heads), K7 in the 20
 # of stages 2-3 (24 and 48 heads)
 SWIN_PER_FRAME = {**PER_FRAME, "window_attention": 4, "window_attn_math": 20}
@@ -850,7 +962,8 @@ SWIN_PER_FRAME = {**PER_FRAME, "window_attention": 4, "window_attn_math": 20}
 def swin_per_batched_step(b: int) -> dict:
     """Launches of one batched step over b clips: one network forward (its
     K1, K7, K8 and three x2 upsamples once), then per clip the x4 dense
-    depth (K2), fusion (K3) and rendering (K4)."""
+    depth (K2), fusion (K3) and rendering (K4); one tracker step (K9) for
+    all clips."""
     return {**SWIN_PER_FRAME, "upsample2": 3 + b, "phase_fusion": b, "map_render": b}
 # per train step: K1 once in the rpn head and twice per stage; one x2
 # upsample each of the stacked masks, the semantic logits, the dense depth
@@ -871,14 +984,14 @@ SWIN_VIDEO_PER_STEP = {**PER_STEP, "window_attention": 3 * 4, "window_attn_math"
 
 def _kernels():
     from polyphonicformer_torch.ops.cuda import (lsa, map_render, mask_loss, mask_pool,
-                                                 phase_fusion, upsample2, window_attn)
+                                                 phase_fusion, tracker, upsample2, window_attn)
 
     return {"mask_pool": mask_pool.KERNEL, "upsample2": upsample2.KERNEL,
             "upsample2_bwd": upsample2.KERNEL_BWD, "phase_fusion": phase_fusion.KERNEL,
             "map_render": map_render.KERNEL, "lsa": lsa.KERNEL, "mask_loss": mask_loss.KERNEL,
             "mask_loss_bwd": mask_loss.KERNEL_BWD,
             "window_attn_math": window_attn.KERNEL_MATH,
-            "window_attention": window_attn.KERNEL_IMAGE}
+            "window_attention": window_attn.KERNEL_IMAGE, "tracker": tracker.KERNEL}
 
 
 def _count_launches(kernels, per: dict, times: int, tag: str) -> dict:
@@ -1874,7 +1987,7 @@ def run_eval(dev):
                                    "video_r50_1x", "--bf16", "--out",
                                    os.path.join(work, "eval_image.json")])
         image_s = time.perf_counter() - t0
-        image_launches = _count_launches(kernels, PER_FRAME, n, "eval_image")
+        image_launches = _count_launches(kernels, IMAGE_PER_FRAME, n, "eval_image")
         _check("eval_image metrics", all(math.isfinite(v) for v in metrics.values()),
                json.dumps(metrics))
 
@@ -2294,6 +2407,8 @@ SEMKITTI_SMALL_HW, SEMKITTI_SMALL_CROP = (94, 310), (96, 320)  # the debug step'
 # no K3, and the dense depth's resize is a matmul; in clip mode and in the
 # eval hook's f32 image step alike
 SEMKITTI_EVAL_PER_FRAME = {"mask_pool": 7, "upsample2": 3, "map_render": 1}
+# eval_video adds the tracker step (K9) a frame
+SEMKITTI_VIDEO_PER_FRAME = {**SEMKITTI_EVAL_PER_FRAME, "tracker": 1}
 # the ASPP head adds one x2 upsample of its 19 maps, forward and backward
 ASPP_PER_STEP = {**PER_STEP, "upsample2": PER_STEP["upsample2"] + 1,
                  "upsample2_bwd": PER_STEP["upsample2_bwd"] + 1}
@@ -2507,7 +2622,7 @@ def run_semkitti(dev, ckpt: str) -> tuple:
                                "--eval-dir", eval_dir, "--clip-len", str(SEMKITTI_VAL_FRAMES),
                                "--eval-stq", "--nproc", "8"])
         eval_s = time.perf_counter() - t0
-        eval_launches = _count_launches(kernels, SEMKITTI_EVAL_PER_FRAME, n_val,
+        eval_launches = _count_launches(kernels, SEMKITTI_VIDEO_PER_FRAME, n_val,
                                         "semkitti eval_video")
         results = res["results"]
         _check("semkitti dvpq", all(math.isfinite(v) for v in results["average"].values())
@@ -2538,7 +2653,7 @@ def run_semkitti(dev, ckpt: str) -> tuple:
                        "cli_wall_s": eval_s, "aggregate_s": res["aggregate_s"],
                        "dvpq_average": results["average"], "stq": results["stq"],
                        "launches_a_frame": {n: eval_launches[n] / n_val
-                                            for n in SEMKITTI_EVAL_PER_FRAME}}})
+                                            for n in SEMKITTI_VIDEO_PER_FRAME}}})
     launches = {n: train_launches[n] + eval_launches[n] for n in kernels}
     info["launches"] = launches
     return info, launches
@@ -2867,7 +2982,8 @@ def _export_frame_path(tag, preset, per_frame, frames_n, dev, work, fresh_proces
             "state_dict_bytes": sd_bytes, "state_dict_entries": len(model.state_dict()),
             **_export_mode(model, cfg, "frame", path)}
     want_ops = {"mask_pool": per_frame["mask_pool"], "upsample_int": per_frame["upsample2"],
-                "phase_fusion": per_frame["phase_fusion"], "render_maps": per_frame["map_render"]}
+                "phase_fusion": per_frame["phase_fusion"], "render_maps": per_frame["map_render"],
+                "tracker_step": per_frame["tracker"]}
     for op in ("window_attention", "window_attn_math"):
         if per_frame.get(op):
             want_ops[op] = per_frame[op]
@@ -2913,7 +3029,7 @@ def _export_frame_path(tag, preset, per_frame, frames_n, dev, work, fresh_proces
 def _export_stateless(dev, work) -> tuple:
     """Phase 11, the image mode and the clip mode (clip_len 2) of
     ``video_r50_1x`` in bf16, each loaded in this process and bit-equal to
-    its eager step, PER_FRAME launches a frame."""
+    its eager step, IMAGE_PER_FRAME and PER_FRAME launches a frame."""
     import os
 
     import torch
@@ -2929,13 +3045,13 @@ def _export_stateless(dev, work) -> tuple:
     sd, bf16 = model.state_dict(), torch.bfloat16
     state0 = init_tracker_state(cfg.tracker, cfg.track_head.embed_channels, dev)
     fid = torch.ones((), dtype=torch.int32, device=dev)
-    # mode: (frames, the eager step, its call, the artifact's call)
-    runs = {"image": (1, lambda: make_image_step(model, cfg, (h, w), bf16, bf16),
+    # mode: (frames, launches a frame, the eager step, its call, the artifact's call)
+    runs = {"image": (1, IMAGE_PER_FRAME, lambda: make_image_step(model, cfg, (h, w), bf16, bf16),
                       lambda fn: fn(frames[:1]), lambda fn: fn(sd, frames[:1])),
-            "clip": (2, lambda: make_clip_step(model, cfg, (h, w), bf16, bf16),
+            "clip": (2, PER_FRAME, lambda: make_clip_step(model, cfg, (h, w), bf16, bf16),
                      lambda fn: fn(frames, state0, fid), lambda fn: fn(sd, frames, state0, fid))}
     info, launches = {}, {n: 0 for n in kernels}
-    for mode, (n, make, call_eager, call_art) in runs.items():
+    for mode, (n, per_frame, make, call_eager, call_art) in runs.items():
         want = _digests(call_eager(make()))
         path = os.path.join(work, f"video_r50_1x_{mode}.pt2")
         info[mode] = _export_mode(model, cfg, mode, path, **({"clip_len": 2} if mode == "clip"
@@ -2943,7 +3059,7 @@ def _export_stateless(dev, work) -> tuple:
         fn = export.load_serving(path)
         _reset(kernels)
         got = _digests(call_art(fn))
-        part = _count_launches(kernels, PER_FRAME, n, f"{mode} artifact")
+        part = _count_launches(kernels, per_frame, n, f"{mode} artifact")
         _check(f"{mode} artifact vs eager", got == want, "outputs differ")
         info[mode]["bit_equal_leaves"] = len(got)
         launches = {k: launches[k] + part[k] for k in launches}
@@ -3893,4 +4009,4 @@ def run_dist(dev, f64_distance: float):
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "dist-rank":  # a rank of phase 12
         sys.exit(_dist_rank(sys.argv[2]))
-    sys.exit(main())
+    sys.exit(main(only_tracker=sys.argv[1:] == ["tracker"]))

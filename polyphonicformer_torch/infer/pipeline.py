@@ -3,11 +3,12 @@ device; mirrors ``polyphonicformer_tpu/infer/pipeline.py``.
 
 Per frame: network -> x2 upsample of the last stage's mask and depth logits
 (K2) -> fusion (K3 on the bf16 path) -> tight and MAD boxes from the
-fusion's marginals -> RoIAlign track embeddings -> tracker -> the four maps
-(K4).  PyTorch runs eagerly, so ``make_*_step`` bind their arguments and
-``clip_video_step`` is a Python loop over the frames.  ``batched_video_step``
-serves one frame of each of B clips: one batched network forward, then
-fusion and the tracker per clip.  Over the data ranks of a mesh
+fusion's marginals -> RoIAlign track embeddings -> tracker (K9) -> the four
+maps (K4).  PyTorch runs eagerly, so ``make_*_step`` bind their arguments
+and ``clip_video_step`` is a Python loop over the frames.
+``batched_video_step`` serves one frame of each of B clips: one batched
+network forward, fusion and detections per clip, one batched track head,
+one tracker step for all clips, the maps per clip.  Over the data ranks of a mesh
 (:func:`make_sharded_batched_video_step`) each rank serves its part of the
 clips with the same weights and its own tracker states, and
 :func:`gather_frame_outputs` gathers the outputs in clip order.
@@ -23,11 +24,12 @@ import torch
 
 from ..models.polyphonic import PolyphonicFormer
 from ..ops.cuda.map_render import render_maps
+from ..ops.cuda.tracker import tracker_step_batched
 from ..ops.resize import resize_bilinear
 from ..ops.roi_align import boxes_mad_from_marginals
 from ..utils.profiling import span
 from .panoptic import PanopticResult, fuse_panoptic
-from .tracker import TrackerState, init_tracker_state, tracker_step
+from .tracker import TrackerState, init_tracker_state
 
 
 class FrameOutput(NamedTuple):
@@ -139,41 +141,52 @@ def _detections(cfg, pano: PanopticResult) -> _Detections:
             roi_boxes=boxes_mad_from_marginals(det_rowm, det_colm))
 
 
-def _frame_id(frame_id, dev) -> torch.Tensor:
-    return frame_id.to(dev, torch.int32) if torch.is_tensor(frame_id) \
-        else torch.full((), frame_id, dtype=torch.int32, device=dev)
+def _frame_ids(frame_ids, dev) -> torch.Tensor:
+    """(B,) int32 frame ids on ``dev``.  Host values reach a card by one
+    copy from pinned memory, which does not wait for the card."""
+    ids = torch.as_tensor(frame_ids).to(torch.int32)
+    if ids.device.type == "cpu" and dev.type == "cuda":
+        ids = ids.pin_memory()
+    return ids.to(dev, non_blocking=True)
 
 
-def _track_and_render(cfg, pano: PanopticResult, det: _Detections, embeds: torch.Tensor,
-                      tracker_state: TrackerState, frame_id: torch.Tensor
-                      ) -> Tuple[FrameOutput, TrackerState]:
-    """One clip's tracker step on its detections, then the four maps (K4)."""
-    dev = embeds.device
+def _track_and_render(cfg, panos, dets, embeds: torch.Tensor, tracker_states: TrackerState,
+                      frame_ids: torch.Tensor) -> Tuple[list, TrackerState]:
+    """The tracker step of all B clips at once (``poly::tracker_step``: one
+    kernel launch on a card), then each clip's four maps (K4).  panos, dets:
+    B per-clip results; embeds (B, D, E); tracker_states with a leading clip
+    axis; frame_ids (B,) int32.  Returns the B FrameOutputs and the new
+    states, stacked."""
     d = cfg.tracker.max_detections
-    kk = pano.instance_ids.shape[0]
+    kk = panos[0].instance_ids.shape[0]
     take = min(d, kk)
     with span("serve/track"):
-        new_state, ids_sorted, order, kept_sorted = tracker_step(
-            cfg.tracker, tracker_state, det.boxes, det.labels, embeds, det.valid, frame_id)
+        new_states, ids_sorted, order, kept_sorted = tracker_step_batched(
+            cfg.tracker, tracker_states, torch.stack([det.boxes for det in dets]),
+            torch.stack([det.labels for det in dets]), embeds,
+            torch.stack([det.valid for det in dets]), frame_ids)
         # sorted ids back to candidate order; reference: ids + 1, -1 / -2 -> 0
-        ids_by_det = torch.zeros((d,), dtype=torch.int32, device=dev)
-        ids_by_det[order] = torch.where(kept_sorted & (ids_sorted >= 0), ids_sorted + 1,
-                                        torch.zeros_like(ids_sorted))
-        thing_keep = det.thing_keep
-        overflow = (thing_keep.sum() - thing_keep[:take].sum()).to(torch.int32)
-        cand_track_id = torch.zeros((kk,), dtype=torch.int32, device=dev)
-        cand_track_id[:take] = ids_by_det[:take]
+        ids_by_det = torch.zeros_like(ids_sorted).scatter_(
+            1, order, torch.where(kept_sorted & (ids_sorted >= 0), ids_sorted + 1,
+                                  torch.zeros_like(ids_sorted)))
+        thing_keep = torch.stack([det.thing_keep for det in dets])
+        overflow = (thing_keep.sum(1) - thing_keep[:, :take].sum(1)).to(torch.int32)
+        cand_track_id = torch.zeros(thing_keep.shape, dtype=torch.int32, device=embeds.device)
+        cand_track_id[:, :take] = ids_by_det[:, :take]
         ids_full = cand_track_id * thing_keep.to(torch.int32)
 
-    nr = kk if pano.n_render is None else pano.n_render
-    with span("serve/render"):
-        semantic, panoptic, depth, track_map = render_maps(
-            pano.pix_arg, pano.depth_pix, pano.depth_basic, pano.labels[:nr],
-            pano.seg_ids[:nr], pano.keep[:nr], ids_full[:nr], cfg.num_classes)
-    pano = pano._replace(semantic=semantic, panoptic=panoptic, depth=depth)
-    return FrameOutput(semantic=semantic, track_map=track_map, depth=depth,
-                       depth_basic=pano.depth_basic, panoptic=panoptic, pano=pano,
-                       track_overflow=overflow), new_state
+    outs = []
+    for b, pano in enumerate(panos):
+        nr = kk if pano.n_render is None else pano.n_render
+        with span("serve/render"):
+            semantic, panoptic, depth, track_map = render_maps(
+                pano.pix_arg, pano.depth_pix, pano.depth_basic, pano.labels[:nr],
+                pano.seg_ids[:nr], pano.keep[:nr], ids_full[b, :nr], cfg.num_classes)
+        pano = pano._replace(semantic=semantic, panoptic=panoptic, depth=depth)
+        outs.append(FrameOutput(semantic=semantic, track_map=track_map, depth=depth,
+                                depth_basic=pano.depth_basic, panoptic=panoptic, pano=pano,
+                                track_overflow=overflow[b]))
+    return outs, new_states
 
 
 @torch.no_grad()
@@ -192,8 +205,10 @@ def video_frame_step(model: PolyphonicFormer, cfg, image: torch.Tensor,
         with span("serve/track_embeds"):
             embeds = model.forward_track_embeds(fpn, None, det.valid[None],
                                                 boxes=det.roi_boxes[None])[0].float()
-        return _track_and_render(cfg, pano, det, embeds, tracker_state,
-                                 _frame_id(frame_id, embeds.device))
+        outs, new_states = _track_and_render(
+            cfg, [pano], [det], embeds[None], tracker_state.map(lambda x: x[None]),
+            _frame_ids(frame_id, embeds.device).reshape(1))
+        return outs[0], new_states.map(lambda x: x[0])
 
 
 def make_video_step(model: PolyphonicFormer, cfg, out_hw, compute_dtype=torch.float32,
@@ -218,12 +233,6 @@ def _stack(items):
     return first
 
 
-def _clip_state(states: TrackerState, b: int) -> TrackerState:
-    """Clip ``b``'s tracker state: views into the batched state."""
-    return TrackerState(**{f.name: getattr(states, f.name)[b]
-                           for f in dataclasses.fields(TrackerState)})
-
-
 def init_batched_tracker_states(cfg, batch: int, device="cuda") -> TrackerState:
     """``batch`` fresh tracker states, each field with a leading clip axis."""
     one = init_tracker_state(cfg.tracker, cfg.track_head.embed_channels, device)
@@ -240,9 +249,9 @@ def batched_video_step(model: PolyphonicFormer, cfg, images: torch.Tensor,
     tracker_states from :func:`init_batched_tracker_states` or the last
     call; frame_ids (B,) ints or an int tensor.
 
-    One batched network forward; fusion, boxes and the tracker per clip
-    (JAX ``vmap``s them), with each clip's tracker state its own; one
-    batched track-head forward.  Returns the FrameOutput and TrackerState
+    One batched network forward; fusion and boxes per clip (JAX ``vmap``s
+    them); one batched track-head forward; one tracker step for all clips,
+    each clip's tracker state its own.  Returns the FrameOutput and TrackerState
     with a leading clip axis."""
     with span("serve/step"):
         model, fpn, heads = _heads(model, images, compute_dtype)
@@ -254,13 +263,10 @@ def batched_video_step(model: PolyphonicFormer, cfg, images: torch.Tensor,
             embeds = model.forward_track_embeds(
                 fpn, None, torch.stack([d.valid for d in dets]),
                 boxes=torch.stack([d.roi_boxes for d in dets])).float()
-        dev = embeds.device
-        outs, states = zip(*(
-            _track_and_render(cfg, panos[b], dets[b], embeds[b],
-                              _clip_state(tracker_states, b), _frame_id(frame_ids[b], dev))
-            for b in range(batch)))
+        outs, states = _track_and_render(cfg, panos, dets, embeds, tracker_states,
+                                         _frame_ids(frame_ids, embeds.device))
         with span("serve/stack"):
-            return _stack(list(outs)), _stack(list(states))
+            return _stack(outs), states
 
 
 def make_batched_video_step(model: PolyphonicFormer, cfg, out_hw, compute_dtype=torch.float32,

@@ -4,7 +4,9 @@ note for the semantics kept from the reference).
 
 Every sort is stable (``jnp.argsort`` is): invalid detections carry a
 ``-inf`` key and tie.  The greedy assignment is a Python loop over the D
-detections of device ops that never reads a value back to the host.
+detections of device ops that never reads a value back to the host.  This
+is the plain version of ``ops/cuda/tracker.py`` (K9), which serving calls:
+one kernel launch for the tracker steps of all clips on a card.
 """
 from __future__ import annotations
 
@@ -33,6 +35,10 @@ class TrackerState:
 
     def replace(self, **changes) -> "TrackerState":
         return dataclasses.replace(self, **changes)
+
+    def map(self, fn) -> "TrackerState":
+        """``fn`` applied to every field."""
+        return TrackerState(*(fn(getattr(self, f.name)) for f in dataclasses.fields(self)))
 
 
 def init_tracker_state(cfg, embed_dim: int, device="cuda") -> TrackerState:

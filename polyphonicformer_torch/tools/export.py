@@ -150,7 +150,7 @@ def _register_ops() -> None:
     """Define the ``poly::`` ops the graph calls (importing their modules
     builds no kernel)."""
     from ..ops.cuda import (lsa, map_render, mask_loss, mask_pool, phase_fusion,  # noqa: F401
-                            upsample2, window_attn)
+                            tracker, upsample2, window_attn)
 
 
 class Serving:

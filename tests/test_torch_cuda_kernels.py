@@ -9,7 +9,8 @@ import pytest
 import torch
 
 from polyphonicformer_torch.ops.cuda import (lsa, map_render, mask_loss, mask_pool,
-                                             phase_fusion, upsample2, window_attn)
+                                             phase_fusion, tracker, upsample2, window_attn)
+import tracker_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -308,7 +309,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 def test_video_frame_step_never_syncs(dev):
     """After a warm-up frame (which uploads the cached constants), a bf16
-    frame through the serving path reads nothing back to the host."""
+    frame through the serving path reads nothing back to the host and
+    launches K9 once."""
     from polyphonicformer_torch.configs import model_preset
     from polyphonicformer_torch.infer.pipeline import video_frame_step
     from polyphonicformer_torch.infer.tracker import init_tracker_state
@@ -322,12 +324,14 @@ def test_video_frame_step_never_syncs(dev):
     kw = dict(compute_dtype=torch.bfloat16, fusion_dtype=torch.bfloat16)
     _, state = video_frame_step(model, cfg, frames[0], state, 1, (64, 128), **kw)
     torch.cuda.synchronize()
+    launches = tracker.KERNEL.launches
     torch.cuda.set_sync_debug_mode("error")
     try:
         out, state = video_frame_step(model, cfg, frames[1], state, 2, (64, 128), **kw)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert out.semantic.shape == (64, 128)
+    assert tracker.KERNEL.launches == launches + 1
 
 
 def test_train_step_never_syncs(dev):
@@ -607,8 +611,9 @@ def test_swin_frame_never_syncs(dev):
 
 def test_batched_video_step_never_syncs(dev):
     """The batched step over 2 clips (bf16, debug widths): after a warm-up
-    step, one step reads nothing back to the host and launches K3 and K4
-    once per clip; its per-clip maps equal two one-clip frame steps."""
+    step, one step reads nothing back to the host, launches K3 and K4
+    once per clip and K9 once for both; its per-clip maps equal two one-clip
+    frame steps."""
     from polyphonicformer_torch.configs import model_preset
     from polyphonicformer_torch.infer.pipeline import (batched_video_step,
                                                        init_batched_tracker_states,
@@ -624,14 +629,14 @@ def test_batched_video_step_never_syncs(dev):
     states = init_batched_tracker_states(cfg, 2, dev)
     _, states = batched_video_step(model, cfg, frames[0], states, [1, 1], (64, 128), **kw)
     torch.cuda.synchronize()
-    before = (phase_fusion.KERNEL.launches, map_render.KERNEL.launches)
+    before = (phase_fusion.KERNEL.launches, map_render.KERNEL.launches, tracker.KERNEL.launches)
     torch.cuda.set_sync_debug_mode("error")
     try:
         out, states = batched_video_step(model, cfg, frames[1], states, [2, 2], (64, 128), **kw)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert (phase_fusion.KERNEL.launches - before[0], map_render.KERNEL.launches - before[1]) \
-        == (2, 2)
+    assert (phase_fusion.KERNEL.launches - before[0], map_render.KERNEL.launches - before[1],
+            tracker.KERNEL.launches - before[2]) == (2, 2, 1)
     assert out.semantic.shape == (2, 64, 128) and states.ids.shape[0] == 2
     for b in range(2):
         state = init_tracker_state(cfg.tracker, cfg.track_head.embed_channels, dev)
@@ -640,3 +645,54 @@ def test_batched_video_step_never_syncs(dev):
                                          (64, 128), **kw)
         agree = (fo.semantic == out.semantic[b]).float().mean()
         assert agree >= 0.999, float(agree)  # a batch of 2 may sum in another order
+
+
+def _tracker_fields(step):
+    """(state, ids, order, kept) as (name, tensor) pairs."""
+    return [*tracker_cases.state_fields(step[0]).items(),
+            *zip(("ids", "order", "kept"), step[1:])]
+
+
+@pytest.mark.parametrize("b", [1, 4])
+def test_tracker_step_kernel_matches_plain(dev, b):
+    """K9 against the plain version (the op's CPU route) over 100 seeded
+    8-frame sequences at the serving sizes (D 64, T 128, BD 64, E 256) and
+    B = b, 200 in all (``tests/tracker_cases.py``: each match metric,
+    with_cats on and off, 0, 4, 64 or any number of valid rows a frame, tied
+    scores and scores at the thresholds, duplicate boxes, duplicate
+    embeddings whose tie the lowest column must win, a full table of 128
+    tracklets with overflow, expiry).  ids, order, kept and every state
+    field equal (``torch.equal``), each side carrying its own state; the
+    input state bit-unchanged; one launch a call."""
+    for seed in range(100 * (b > 1), 100 * (b > 1) + 100):
+        cfg, frames = tracker_cases.sequence(seed, b)
+        card = tracker_cases.fresh_states(cfg, b, 256, dev)
+        plain = tracker_cases.fresh_states(cfg, b, 256)
+        for f, x in enumerate(frames):
+            before = card.map(torch.clone)
+            launches = tracker.KERNEL.launches
+            got = tracker.tracker_step_batched(cfg, card, *(t.to(dev) for t in x))
+            assert tracker.KERNEL.launches == launches + 1
+            want = tracker.tracker_step_batched(cfg, plain, *x)
+            for (name, g), (_, w) in zip(_tracker_fields(got), _tracker_fields(want)):
+                assert g.dtype == w.dtype and g.shape == w.shape, (seed, f, name)
+                assert torch.equal(g.cpu(), w), (seed, f, name, int((g.cpu() != w).sum()))
+            for name, t in tracker_cases.state_fields(card).items():
+                assert torch.equal(t, getattr(before, name)), (seed, f, "input changed", name)
+            card, plain = got[0], want[0]
+
+
+def test_tracker_step_kernel_refuses(dev):
+    """A host tensor among card tensors, a non-contiguous one, and rows
+    not 16-byte aligned."""
+    cfg, frames = tracker_cases.sequence(9, 2, frames=1)
+    state = tracker_cases.fresh_states(cfg, 2, 256, dev)
+    boxes, labels, emb, valid, fids = (t.to(dev) for t in frames[0])
+    with pytest.raises(ValueError):
+        tracker.tracker_step_batched(cfg, state, boxes, labels, emb, valid, fids.cpu())
+    with pytest.raises(ValueError):
+        wide = torch.zeros((2, 64, 512), device=dev)[:, :, ::2]
+        tracker.tracker_step_batched(cfg, state, boxes, labels, wide, valid, fids)
+    with pytest.raises(ValueError, match="aligned"):
+        shifted = torch.zeros(emb.numel() + 1, device=dev)[1:].view(emb.shape)
+        tracker.tracker_step_batched(cfg, state, boxes, labels, shifted, valid, fids)

@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from polyphonicformer_torch.ops.cuda import (lsa, map_render, mask_loss, mask_pool,
-                                             phase_fusion, upsample2, window_attn)
+                                             phase_fusion, tracker, upsample2, window_attn)
+import tracker_cases
 
 torch.set_num_threads(2)
 
@@ -48,6 +49,17 @@ def _window_inputs(rng, image: bool, masked: bool, dtype):
     mask = torch.from_numpy(np.where(rng.rand(nmask, l, l) < 0.3, -100.0, 0.0)
                             .astype(np.float32)) if masked else None
     return (qkv, bias, mask, heads, *extra)
+
+
+def _tracker_args(seed: int):
+    """The op's arguments for the second frame of a small tracker case (2
+    clips, D 8, T 16, BD 16, E 8), from the state the first frame left."""
+    cfg, frames = tracker_cases.sequence(seed, 2, frames=2, d=8, t=16, bd=16, e=8)
+    state = tracker_cases.fresh_states(cfg, 2, 8)
+    state = tracker.tracker_step_batched(cfg, state, *frames[0])[0]
+    return (*tracker_cases.state_fields(state).values(), *frames[1],
+            [float(getattr(cfg, n)) for n in tracker.THRESHOLDS], cfg.memo_tracklet_frames,
+            cfg.with_cats, cfg.match_metric)
 
 
 def _cases():
@@ -92,6 +104,10 @@ def _cases():
          lambda a: mask_loss.mask_loss_stats_plain(*a)),
         ("mask_loss_grad", mask_loss.mask_loss_grad_op, (*ml, *grads, lse),
          lambda a: mask_loss.mask_loss_grad_plain(*a)),
+        ("tracker_step", tracker.tracker_step_op, _tracker_args(21),
+         lambda a: tracker.tracker_step_plain(*a)),
+        ("tracker_step_cosine", tracker.tracker_step_op, _tracker_args(20),
+         lambda a: tracker.tracker_step_plain(*a)),
     ]
     for dtype in (torch.float32, torch.bfloat16):
         for masked in (False, True):
@@ -108,7 +124,7 @@ def _cases():
 CASES = {c[0]: c[1:] for c in _cases()}
 OPS = ("mask_pool", "upsample_int", "upsample_int_bwd", "phase_fusion", "render_maps",
        "solve_lsa", "mask_loss_stats", "mask_loss_grad", "window_attn_math",
-       "window_attention")
+       "window_attention", "tracker_step")
 
 
 def _leaves(out):
@@ -116,7 +132,7 @@ def _leaves(out):
 
 
 def test_every_kernel_is_a_poly_op():
-    """The ten ops of the kernel table, each with a CPU, a CUDA and a fake
+    """The eleven ops of the kernel table, each with a CPU, a CUDA and a fake
     registration."""
     for name in OPS:
         op = getattr(torch.ops.poly, name).default

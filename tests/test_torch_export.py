@@ -15,6 +15,9 @@ equal, depth within rtol 1e-4 + atol 2e-3.
 """
 import dataclasses
 import logging
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -98,12 +101,27 @@ def test_frame_roundtrip_bit_equal(port, caplog):
     with caplog.at_level(logging.WARNING):
         fn = export.load_serving(blob)
     assert not [r for r in caplog.records if "weights_only" in r.getMessage()]
-    assert export.poly_ops(fn.program) == {**FRAME_OPS, "phase_fusion": 1}
+    assert export.poly_ops(fn.program) == {**FRAME_OPS, "phase_fusion": 1, "tracker_step": 1}
     sd = model.state_dict()
     assert_bit_equal(run(lambda *a: fn(sd, *a)), before)
     assert int(before[-1][1].num_tracklets) > 0, "no detection reached the tracker"
     assert len(blob) < sum(v.numel() * v.element_size() for v in sd.values())
 
+
+def test_frame_artifact_loads_in_a_fresh_process(port, tmp_path):
+    """``load_serving`` alone defines every ``poly::`` op the frame program
+    calls (the tracker's among them): a process that imports nothing else
+    loads the artifact."""
+    cfg, model = port
+    path = tmp_path / "frame.pt2"
+    path.write_bytes(export.export_serving(model, cfg, "frame", (H, W)))
+    code = ("import sys; from polyphonicformer_torch.tools import export; "
+            "print(sorted(export.poly_ops(export.load_serving(sys.argv[1]).program)))")
+    proc = subprocess.run([sys.executable, "-c", code, str(path)], capture_output=True,
+                          text=True, timeout=300,
+                          cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "tracker_step" in proc.stdout.splitlines()[-1]
 
 def test_image_roundtrip_two_checkpoints(port, tmp_path):
     """f32 image mode: the artifact written to a file and loaded from it

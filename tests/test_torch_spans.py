@@ -81,7 +81,7 @@ def test_serving_spans_nest_under_the_step(served):
     want = {"serve/step": 1, "serve/network": 1, "model/backbone": 1, "model/neck": 1,
             "model/kernel_head": 1, "model/stage": cfg.num_stages, "serve/fuse": B,
             "serve/detections": B, "serve/track_embeds": 1, "model/track_head": 1,
-            "serve/track": B, "serve/render": B, "serve/stack": 1}
+            "serve/track": 1, "serve/render": B, "serve/stack": 1}
     assert {name: _count(spans, name) for name in want} == want
     assert {s[0] for s in spans} == set(want)
     (root,) = [s for s in spans if s[0] == "serve/step"]
