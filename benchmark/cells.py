@@ -3,8 +3,11 @@
 A workload names a configuration (``configs/<config>.json``) and a traffic
 mix (``traffic/<traffic>.json``); its limits for ``correct`` are in
 ``limits/<workload>.json``; each per-layer metric is a reader
-``metrics/<name>.py``.  Adding a cell, a configuration, a mix or a metric
-adds files and entries and edits none.
+``metrics/<name>.py``.  A configuration's backbone and neck are
+``reference/backbones/<backbone>.py``; a kernel's roofline formula and
+device names are ``roofline/<op>.py``.  Adding a cell, a configuration (with
+a new backbone), a mix, a kernel or a metric adds files and entries and
+edits none.
 """
 from __future__ import annotations
 
@@ -58,14 +61,19 @@ def load(workload: str, bench_path: Path | None = None, root: Path | None = None
                 per_layer=[m for m in bench["per_layer"] if _reports(m, workload)])
 
 
+def module(path: Path, name: str):
+    """The module of the file ``path``, executed afresh under the dotted
+    ``name`` (its package resolves relative imports)."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def metric_reader(name: str, root: Path | None = None):
     """``read(trace) -> float | None`` of ``metrics/<name>.py``."""
     root = HERE if root is None else Path(root)
-    path = root / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"benchmark.metrics.{name}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return module(root / "metrics" / f"{name}.py", f"benchmark.metrics.{name}").read
 
 
 def entry(mix: dict):

@@ -20,11 +20,12 @@ from __future__ import annotations
 
 import dataclasses
 import random
+import statistics
 import time
 
 import torch
 
-from .. import device as devices, program, trace as tracing, weights
+from .. import device as devices, program, spans, trace as tracing, weights
 from ..check import serve as check
 from ..reference import config as ref_config
 from ..roofline import model_flops
@@ -85,6 +86,18 @@ def setup_marks(started: float, marks) -> str:
     return "setup: " + ", ".join(parts) + " s"
 
 
+def latency_line(lat, issue) -> str:
+    """The steps' latencies by quantile, and how many of them the host paced:
+    steps whose call returned after 90% or more of the latency had passed."""
+    if len(lat) < 2:
+        return "latency: too few steps"
+    q = statistics.quantiles([1e3 * x for x in lat], n=100)
+    paced = sum(i >= 0.9 * x for i, x in zip(issue, lat))
+    return (f"latency ms: p50 {q[49]:.1f}, p90 {q[89]:.1f}, p95 {q[94]:.1f}, p99 {q[98]:.1f}, "
+            f"max {1e3 * max(lat):.1f}; host-paced steps {paced} of {len(lat)}, "
+            f"call returned at p50 {1e3 * statistics.median(issue):.1f} ms")
+
+
 def check_steps(mix: dict, seed: int) -> list[int]:
     first = int(mix["check_first_steps"])
     rng = random.Random(seed)
@@ -134,16 +147,18 @@ def run(ctx):
 
     loop = {"t": 0, "states": init_batched_tracker_states(cfg.model, streams, dev),
             "end": 0.0}
-    lat = []
+    lat, issue = [], []  # a step's seconds to outputs complete; to the call's return
 
     def serve_one():
         t, state_in = loop["t"], loop["states"]
         capture.armed = t in keep
         now = time.perf_counter()
         out, loop["states"] = step(frames[t % cycle], state_in, [t] * streams)
+        issued = time.perf_counter()
         devices.sync(dev)
         loop["end"] = time.perf_counter()
         lat.append(loop["end"] - now)
+        issue.append(issued - now)
         if t in keep:
             kept[t] = {"heads": capture.take(), "state_in": _state_cpu(state_in),
                        "state_out": _state_cpu(loop["states"]),
@@ -173,13 +188,16 @@ def run(ctx):
     p95 = lat_sorted[min(len(lat) - 1, int(0.95 * len(lat)))] if lat else float("nan")
     notes = [f"window: {steps} steps, {frames_done} frames in {window_s:.3f} s; "
              f"frame_p95_ms over {len(lat)} step latencies",
-             setup_marks(ctx.started, marks)]
+             latency_line(lat, issue), setup_marks(ctx.started, marks),
+             spans.kernels_line()]
     trace, breakdown = None, None
     if ctx.trace:
         trace, breakdown = tracing.read(*profiled, "serve", prof_steps, prof_steps * streams,
                                         0, flops, cell.config["serve"]["compute_dtype"])
         notes.append(f"profiled: steps {profile_at}..{profile_at + prof_steps - 1} "
-                     f"({trace.span_s:.6f} s), shapes over the next {prof_steps}")
+                     f"({trace.span_s:.6f} s), shapes over the next {prof_steps}, "
+                     f"spans over the {prof_steps} after")
+        notes += spans.table_lines(trace.spans, prof_steps)
     del step, served, loop, capture
     devices.empty_cache(dev)
     checks, failed, more = check.compare(exp, cell, sd, frames, kept, keep, dev, dtypes)

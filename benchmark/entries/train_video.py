@@ -19,7 +19,7 @@ import time
 
 import torch
 
-from .. import device as devices, program, trace as tracing, weights
+from .. import device as devices, program, spans, trace as tracing, weights
 from ..check import train as check
 from .serve_batched import setup_marks
 from ..reference import config as ref_config
@@ -126,13 +126,15 @@ def run(ctx):
     peak = devices.peak_bytes(dev)
     steps = loop["i"] - n_ref
     notes = [f"window: {steps} steps, {steps * batch} samples in {window_s:.3f} s",
-             setup_marks(ctx.started, marks)]
+             setup_marks(ctx.started, marks), spans.kernels_line()]
     trace, breakdown = None, None
     if ctx.trace:
         trace, breakdown = tracing.read(*profiled, "train", prof_steps, 0, prof_steps * batch,
                                         flops, cell.config["train"]["compute_dtype"])
         notes.append(f"profiled: steps {profile_at}..{profile_at + prof_steps - 1} "
-                     f"({trace.span_s:.6f} s), shapes over the next {prof_steps}")
+                     f"({trace.span_s:.6f} s), shapes over the next {prof_steps}, "
+                     f"spans over the {prof_steps} after")
+        notes += spans.table_lines(trace.spans, prof_steps)
     del step, loop, opt, model
     devices.empty_cache(dev)
     checks, more = check.compare(exp, cell, sd, parts, got, dev)

@@ -38,3 +38,24 @@ def idle(trace) -> float | None:
     if trace.span_s <= 0:
         return None
     return 100.0 * max(0.0, 1.0 - trace.busy_s / trace.span_s)
+
+
+def span_ms(trace, kind: str, names, what: str) -> float | None:
+    """The span pass's ms a frame (serving) or sample (training) of the
+    spans ``names``, children of the ``<kind>/step`` root: with ``what`` =
+    "host", their host ms; with "idle", the idle ms of the gaps their
+    launches ended (``spans.attribute``'s groups).  None in a run of
+    another kind, without a span pass, or without a ``<kind>/step`` span
+    (a program without spans)."""
+    r = trace.spans
+    units = trace.frames if kind == "serve" else trace.samples
+    if trace.kind != kind or r is None or not units \
+            or not r.rows.get(f"{kind}/step", {}).get("calls"):
+        return None
+    if what == "host":
+        ms = sum(r.rows[n]["host_ms"] for n in names if n in r.rows)
+    elif what == "idle":
+        ms = sum(r.groups.get(n, 0.0) for n in names)
+    else:
+        raise ValueError(f"span_ms: what is {what!r}, not 'host' or 'idle'")
+    return ms / units

@@ -1,5 +1,10 @@
-"""PolyphonicFormer: backbone (ResNet or Swin) -> FPN -> KernelHead ->
-KernelUpdateHead stages, plus the track head.
+"""PolyphonicFormer: backbone -> neck -> KernelHead -> KernelUpdateHead
+stages, plus the track head.
+
+The backbone and its neck come from ``reference/backbones/<backbone>.py``,
+found by the configuration's ``backbone`` name: its ``build(cfg) ->
+(backbone, neck)`` and optionally ``INIT_STD`` (key suffix -> std of the
+seeded draw, ``benchmark/weights.py``).  The neck returns the four levels at strides 4/8/16/32 with ``fpn_out_channels``.
 
 Images enter as (B, H, W, 3); everything inside is NCHW.  ``state_dict()``
 keys are the published mmdet checkpoint's keys, so the reference loads the
@@ -7,22 +12,27 @@ same state dict the benchmark hands the program.
 """
 from __future__ import annotations
 
+from pathlib import Path
 from typing import NamedTuple, Sequence, Tuple
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .fpn import FPN
+from ...cells import module
 from .kernel_head import KernelHead, RPNOutput
 from .kernel_update_head import KernelUpdateHead, StageOutput
-from .resnet import ResNet
-from .swin import SwinTransformer
-
-# backbone -> (embed dim, blocks per stage, heads per stage)
-SWIN_SPECS = {"swin_tiny": (96, (2, 2, 6, 2), (3, 6, 12, 24)),
-              "swin_large": (192, (2, 2, 18, 2), (6, 12, 24, 48))}
 from .track_head import TrackHead
+
+BACKBONES = Path(__file__).resolve().parents[1] / "backbones"
+
+
+def backbone_file(name: str, root: Path | None = None):
+    """The module of ``<name>.py`` in ``root`` (default :data:`BACKBONES`)."""
+    path = (BACKBONES if root is None else Path(root)) / f"{name}.py"
+    if not path.is_file():
+        raise ValueError(f"unknown backbone {name!r}: no file {path}")
+    return module(path, f"benchmark.reference.backbones.{name}")
 
 
 class ModelOutput(NamedTuple):
@@ -41,19 +51,13 @@ class _RoIHead(nn.Module):
 
 class PolyphonicFormer(nn.Module):
     def __init__(self, cfg):
-        """cfg: the model configuration (a ResNet or Swin backbone)."""
+        """cfg: the model configuration; its backbone is a file of
+        :data:`BACKBONES`."""
         super().__init__()
         self.cfg = cfg
-        if cfg.backbone.startswith("resnet"):
-            self.backbone = ResNet(cfg.backbone)
-            self.backbone.freeze(cfg.frozen_stages)
-        elif cfg.backbone in SWIN_SPECS:  # no Swin stage is frozen
-            self.backbone = SwinTransformer(*SWIN_SPECS[cfg.backbone])
-        else:
-            raise ValueError(f"unknown backbone {cfg.backbone}")
+        self.backbone, self.neck = backbone_file(cfg.backbone).build(cfg)
         # the backward recomputes the backbone's activations
         self.remat_backbone = cfg.remat_backbone
-        self.neck = FPN(self.backbone.out_channels, cfg.fpn_out_channels)
         self.rpn_head = KernelHead(
             cfg.fpn_out_channels, cfg.out_channels, cfg.num_proposals,
             cfg.num_thing_classes, cfg.num_stuff_classes, cfg.sem_fpn_gn_groups,

@@ -6,14 +6,17 @@ flops, dtype)``: the bytes of every input read once and every output written
 once, the operations the op's algorithm needs, and the dtype whose peak
 bounds them, all from the call's shapes as the profiler records them
 (``record_shapes``).  :func:`least_seconds` turns a call into its least time
-at the card's peaks (:mod:`.peaks`).  The per-configuration FLOPs of a whole
-step are in :mod:`.model_flops`.
+at the card's peaks (:mod:`.peaks`).  Each file also names, in
+``DEVICE_NAMES``, fragments of its kernels'
+device names: the trace counts a kernel whose name holds one as the
+program's own (:func:`device_names`).  The per-configuration FLOPs of a
+whole step are in :mod:`.model_flops`.
 """
 from __future__ import annotations
 
-import importlib.util
 from pathlib import Path
 
+from ..cells import module
 from .peaks import least_seconds as _least
 
 _HERE = Path(__file__).resolve().parent
@@ -38,18 +41,24 @@ def nbytes(shape, dtype) -> int:
     return numel(shape) * itemsize(dtype)
 
 
-def formula(op: str):
-    """The formula module of ``poly::<op>``, or None when the op has none."""
+def formula(op: str, root: Path | None = None):
+    """The formula module of ``poly::<op>`` in ``root`` (default: this
+    folder), or None when the op has none."""
     short = op.split("::", 1)[-1].split(".", 1)[0]
-    if short not in _CACHE:
-        path = _HERE / f"{short}.py"
-        mod = None
-        if path.is_file():
-            spec = importlib.util.spec_from_file_location(f"benchmark.roofline.{short}", path)
-            mod = importlib.util.module_from_spec(spec)
-            spec.loader.exec_module(mod)
-        _CACHE[short] = mod
-    return _CACHE[short]
+    root = _HERE if root is None else Path(root)
+    key = (root, short)
+    if key not in _CACHE:
+        path = root / f"{short}.py"
+        _CACHE[key] = module(path, f"benchmark.roofline.{short}") if path.is_file() else None
+    return _CACHE[key]
+
+
+def device_names(root: Path | None = None) -> frozenset:
+    """The union of the ``DEVICE_NAMES`` of the files in ``root`` (default:
+    this folder)."""
+    root = _HERE if root is None else Path(root)
+    return frozenset(n for path in sorted(root.glob("[!_]*.py"))
+                     for n in getattr(formula(path.stem, root), "DEVICE_NAMES", ()))
 
 
 def least_seconds(op: str, shapes, dtypes, scalars) -> float | None:

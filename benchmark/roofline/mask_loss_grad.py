@@ -4,6 +4,8 @@ written once.  Per element: the sigmoid (3), the BCE and dice terms (8), the
 softmax term from the saved logsumexp (4): 15, in f32."""
 from benchmark.roofline import nbytes, numel
 
+DEVICE_NAMES = ("mask_loss",)
+
 
 def cost(shapes, dtypes, scalars):
     ins = sum(nbytes(s, d) for s, d in zip(shapes[:8], dtypes[:8]))

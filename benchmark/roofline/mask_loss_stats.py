@@ -5,6 +5,8 @@ element: sigmoid and softplus from one exponential (4), the BCE term (4),
 three dice products and sums (6), the logsumexp step (4): 18, in f32."""
 from benchmark.roofline import nbytes, numel
 
+DEVICE_NAMES = ("mask_loss",)
+
 
 def cost(shapes, dtypes, scalars):
     n, q, h, w = shapes[0]

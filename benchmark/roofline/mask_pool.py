@@ -4,6 +4,8 @@ written once; 2 B N h w C operations.  One operand is a 0/1 mask, exact in
 bf16, so the product runs at the bf16 peak whatever the features' dtype."""
 from benchmark.roofline import nbytes
 
+DEVICE_NAMES = ("mask_pool",)
+
 
 def cost(shapes, dtypes, scalars):
     (b, n, h, w), (_, _, _, c) = shapes[0], shapes[1]

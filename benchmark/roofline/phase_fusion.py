@@ -6,6 +6,8 @@ Operations: every candidate's probability at every full-resolution pixel
 1), the winner's depth (6 a pixel) and its counts (3 a pixel), in f32."""
 from benchmark.roofline import nbytes
 
+DEVICE_NAMES = ("phase_fusion",)
+
 
 def cost(shapes, dtypes, scalars):
     k, hs, ws = shapes[0]

@@ -4,6 +4,8 @@ W)``: every input read once, the four maps written once; a few selects a
 pixel, no arithmetic to speak of."""
 from benchmark.roofline import nbytes
 
+DEVICE_NAMES = ("map_render",)
+
 
 def cost(shapes, dtypes, scalars):
     h, w = shapes[0]

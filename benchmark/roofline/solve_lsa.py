@@ -5,6 +5,8 @@ solver needs of these inputs, one comparison a cost, so the bound is a
 least time and the share a lower one."""
 from benchmark.roofline import numel
 
+DEVICE_NAMES = ("lsa_kernel",)
+
 
 def cost(shapes, dtypes, scalars):
     n, g, p = shapes[0]

@@ -3,6 +3,8 @@ the input read once, the output written once; a two-tap lerp along each
 axis, 6 operations an output element, in f32."""
 from benchmark.roofline import numel
 
+DEVICE_NAMES = ("upsample_int",)
+
 
 def cost(shapes, dtypes, scalars):
     fy, fx = int(scalars[1]), int(scalars[2])

@@ -3,6 +3,8 @@ f32``: the gradient read once, the input gradient written once; each
 gradient element feeds two taps along each axis, 6 operations."""
 from benchmark.roofline import numel
 
+DEVICE_NAMES = ("upsample_int",)
+
 
 def cost(shapes, dtypes, scalars):
     fy, fx = int(scalars[1]), int(scalars[2])

@@ -3,6 +3,8 @@
 Wp / ws^2 windows of the image layout, L = ws^2."""
 from benchmark.roofline import nbytes
 
+DEVICE_NAMES = ("window_attn",)
+
 
 def cost(shapes, dtypes, scalars):
     b, hp, wp, c3 = shapes[0]

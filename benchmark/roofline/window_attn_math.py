@@ -5,6 +5,8 @@ operations in qkv's dtype (the softmax, 5 an entry, is left out: it runs
 beside the products)."""
 from benchmark.roofline import nbytes
 
+DEVICE_NAMES = ("window_attn",)
+
 
 def cost(shapes, dtypes, scalars):
     nw, l, c3 = shapes[0]

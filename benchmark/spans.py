@@ -1,7 +1,5 @@
 """The card's idle time put down to the program's spans.
 
-    python -m benchmark.spans --workload <name> --seed <n> --seconds <s>
-
 The program marks the parts of its serving and train steps with
 ``torch.profiler.record_function`` ranges while a profiler records
 (``polyphonicformer_torch/utils/profiling.py::span``): ``serve/``,
@@ -21,40 +19,20 @@ correlation id) and the device's intervals:
   its children, ``(outside)`` those outside every span and the window's
   tail after the last kernel.  The groups' idle sums to the window's idle.
 
-:data:`METRICS` are six per-layer readings of those groups, per frame or
-sample.  The command runs a cell as ``python -m benchmark.run ... --trace 1``
-does, and after its two profiled passes a third over as many steps, with
-CPU and CUDA activity and no shapes (the first pass records no host spans);
-it prints the cell's lines, then whether the process built the kernels, the
-per-span table, and one JSON line with the readings and the groups' idle.
+The benchmark's traced runs (``python -m benchmark.run ... --trace 1``)
+make a third profiled pass for them (``trace.profile_steps``) and print the
+per-span table and the groups' idle; the per-layer metrics that read them
+are files of ``benchmark/metrics`` naming their spans
+(``metrics/_common.py::span_ms``).
 """
 from __future__ import annotations
 
-import argparse
-import json
-import sys
-import time
 from typing import NamedTuple
 
 PREFIXES = ("serve/", "model/", "train/")
 ROOTS = ("serve/step", "train/step")
 STEP, OUTSIDE = "(step)", "(outside)"
 WINDOW = "benchmark.span_pass"
-
-CLIP_PATH = ("serve/fuse", "serve/detections", "serve/track_embeds", "serve/track",
-             "serve/render", "serve/stack")
-FORWARD = ("train/prep", "train/cast", "train/forward_losses")
-BACKWARD = ("train/backward",)
-UPDATE = ("train/grad_cast", "train/reduce", "train/clip", "train/optimizer", "train/guard")
-# name -> (kind, "idle" ms of the groups or "host" ms of the spans, the root's children)
-METRICS = {
-    "clip_path_host_ms.serve": ("serve", "host", CLIP_PATH),
-    "clip_path_idle_ms.serve": ("serve", "idle", CLIP_PATH),
-    "network_idle_ms.serve": ("serve", "idle", ("serve/network",)),
-    "forward_idle_ms.train": ("train", "idle", FORWARD),
-    "backward_idle_ms.train": ("train", "idle", BACKWARD),
-    "update_idle_ms.train": ("train", "idle", UPDATE),
-}
 
 
 class Span(NamedTuple):
@@ -176,23 +154,6 @@ def attribute(spans, launches, kernels, window) -> Reading:
                    idle_ms=window_ms - busy / 1e3)
 
 
-def metrics(reading: Reading, kind: str, units: int) -> dict:
-    """:data:`METRICS` of ``kind`` over ``units`` frames or samples; none
-    where no ``<kind>/step`` span was recorded (a program without spans)."""
-    out = {}
-    if not units or not reading.rows.get(f"{kind}/step", {}).get("calls"):
-        return out
-    for name, (k, what, children) in METRICS.items():
-        if k != kind:
-            continue
-        if what == "host":
-            ms = sum(reading.rows[c]["host_ms"] for c in children if c in reading.rows)
-        else:
-            ms = sum(reading.groups.get(c, 0.0) for c in children)
-        out[name] = ms / units
-    return out
-
-
 def _is_runtime(name: str) -> bool:
     return name.startswith("cu") and "::" not in name
 
@@ -229,9 +190,8 @@ def from_profile(prof):
 
 
 def span_pass(run_step, n: int, sync):
-    """``n`` steps under ``torch.profiler`` with CPU and CUDA activity, in a
-    ``record_function(WINDOW)`` closed by ``sync()``: (profile, seconds on
-    the host clock)."""
+    """The profile of ``n`` steps under ``torch.profiler`` with CPU and CUDA
+    activity, in a ``record_function(WINDOW)`` closed by ``sync()``."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -239,24 +199,26 @@ def span_pass(run_step, n: int, sync):
                                      else [])
     sync()
     with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
         with record_function(WINDOW):
             for _ in range(n):
                 run_step()
             sync()
-        seconds = time.perf_counter() - t0
-    return prof, seconds
+    return prof
 
 
 def table_lines(reading: Reading, steps: int) -> list:
-    """One line per span, most idle first, each number per step."""
-    lines = [f"spans per step over {steps}: calls, host ms (self), launches, device ms, "
-             f"idle ms"]
+    """One line per span, most idle first, then the groups' idle, each
+    number per step."""
+    lines = [f"spans per step over {steps} ({reading.window_ms / steps:.3f} ms a step): "
+             f"calls, host ms (self), launches, device ms, idle ms"]
     for name, r in sorted(reading.rows.items(), key=lambda kv: -kv[1]["idle_ms"]):
         if r["calls"] or r["launches"]:
             lines.append(f"span {name}: {r['calls'] / steps:g}, {r['host_ms'] / steps:.3f} "
                          f"({r['self_ms'] / steps:.3f}), {r['launches'] / steps:g}, "
                          f"{r['device_ms'] / steps:.3f}, {r['idle_ms'] / steps:.3f}")
+    groups = sorted(reading.groups.items(), key=lambda kv: -kv[1])
+    lines.append("span groups, idle ms: " + ", ".join(f"{g} {ms / steps:.3f}"
+                                                      for g, ms in groups))
     return lines
 
 
@@ -268,59 +230,3 @@ def kernels_line() -> str:
         return f"kernels: built in this process in {_lib.build_seconds:.1f} s"
     return "kernels: loaded from the build cache"
 
-
-def main(argv=None) -> int:
-    from . import cells, run, trace as tracing
-
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--workload", required=True)
-    ap.add_argument("--seed", type=int, required=True)
-    ap.add_argument("--seconds", type=float, required=True)
-    args = ap.parse_args(argv)
-    cell = cells.load(args.workload)
-    got = {}
-    two_passes = tracing.profile_steps
-
-    def three_passes(run_step, n, sync):
-        out = two_passes(run_step, n, sync)
-        got["device_pass_spans"] = sum(
-            e.name().startswith(PREFIXES) for e in out[0].profiler.kineto_results.events())
-        got["prof"], got["seconds"] = span_pass(run_step, n, sync)
-        return out
-
-    tracing.profile_steps = three_passes
-    try:
-        rc = run.main(["--workload", args.workload, "--seed", str(args.seed),
-                       "--seconds", str(args.seconds), "--trace", "1"])
-    finally:
-        tracing.profile_steps = two_passes
-    if rc != 0 or "prof" not in got:
-        return rc or 1
-    steps = int(cell.mix["profile_steps"])
-    kind = "serve" if cell.mix["entry"] == "serve_batched" else "train"
-    units = steps * int(cell.mix["streams"] if kind == "serve" else cell.config["batch_size"])
-    spans, launches, kernels, window = from_profile(got["prof"])
-    reading = attribute(spans, launches, kernels, window)
-    values = metrics(reading, kind, units)
-    print(kernels_line())
-    print(f"span pass: {steps} steps in {got['seconds']:.6f} s, "
-          f"{1e3 * got['seconds'] / steps:.3f} ms a step; program spans in the device "
-          f"pass: {got['device_pass_spans']}")
-    for line in table_lines(reading, steps):
-        print(line)
-    corrs = {c.corr for c in launches}
-    matched = sum(k.corr in corrs for k in kernels)
-    top = sorted(reading.rows.items(), key=lambda kv: -kv[1]["idle_ms"])[:10]
-    print(json.dumps({
-        "workload": args.workload, "seed": args.seed, "steps": steps, "units": units,
-        "span_pass_step_ms": 1e3 * got["seconds"] / steps, "window_ms": reading.window_ms,
-        "busy_ms": reading.busy_ms, "idle_ms": reading.idle_ms,
-        "groups_idle_ms": reading.groups, "groups_sum_ms": sum(reading.groups.values()),
-        "kernels": len(kernels), "kernels_matched": matched,
-        "threads": sorted({c.thread for c in launches}), "metrics": values,
-        "spans": [[n, r["idle_ms"]] for n, r in top]}), flush=True)
-    return 0
-
-
-if __name__ == "__main__":
-    sys.exit(main())

@@ -1,16 +1,30 @@
 """The span reader (``benchmark/spans.py``) on synthetic traces and on a CPU
 profile: launches and device ms by span, each idle gap put down to the
 span whose launch ended it, a launch of the backward's thread put down to
-``train/backward``, and the groups' idle summing to the window's."""
+``train/backward``, and the groups' idle summing to the window's; the span
+metrics (``benchmark/metrics/*_ms.*.py``) read from such a reading."""
 import random
 
 import pytest
 import torch
 
-from benchmark import spans as S
+from benchmark import cells, spans as S, trace as T
 from polyphonicformer_torch.utils.profiling import span
 
 MAIN, AUTOGRAD = 1, 2
+SPAN_METRICS = ("clip_path_host_ms.serve", "clip_path_idle_ms.serve", "network_idle_ms.serve",
+                "forward_idle_ms.train", "backward_idle_ms.train", "update_idle_ms.train")
+
+
+def _read(reading, kind, units) -> dict:
+    """The span metrics that a traced run of ``kind`` over ``units`` frames
+    or samples gives from ``reading``, in us."""
+    trace = T.Trace(kind=kind, steps=1, frames=units if kind == "serve" else 0,
+                    samples=units if kind == "train" else 0, span_s=1.0, busy_s=0.0,
+                    device=[], ops=[], port_s=0.0, step_flops=0.0, compute_dtype="float32",
+                    spans=reading)
+    out = {n: cells.metric_reader(n)(trace) for n in SPAN_METRICS}
+    return {n: v * 1e3 for n, v in out.items() if v is not None}
 
 
 def _train_trace():
@@ -56,16 +70,16 @@ def test_backward_thread_launches_group_under_backward():
     assert groups == pytest.approx({S.STEP: 6, "train/forward_losses": 10,
                                     "train/backward": 22, "train/optimizer": 22,
                                     S.OUTSIDE: 12})
-    got = S.metrics(r, "train", 2)
+    got = _read(r, "train", 2)
     assert set(got) == {"forward_idle_ms.train", "backward_idle_ms.train",
                         "update_idle_ms.train"}
-    assert got["forward_idle_ms.train"] * 1e3 == pytest.approx(5)
-    assert got["backward_idle_ms.train"] * 1e3 == pytest.approx(11)
-    assert got["update_idle_ms.train"] * 1e3 == pytest.approx(11)
-    assert S.metrics(r, "serve", 2) == {}
+    assert got["forward_idle_ms.train"] == pytest.approx(5)
+    assert got["backward_idle_ms.train"] == pytest.approx(11)
+    assert got["update_idle_ms.train"] == pytest.approx(11)
+    assert _read(r, "serve", 2) == {}
 
 
-def test_serving_metrics():
+def _serve_reading():
     spans = [S.Span("serve/step", MAIN, 0, 50), S.Span("serve/network", MAIN, 0, 20),
              S.Span("model/backbone", MAIN, 1, 10), S.Span("serve/fuse", MAIN, 20, 30),
              S.Span("serve/fuse", MAIN, 30, 36), S.Span("serve/stack", MAIN, 40, 45)]
@@ -73,12 +87,39 @@ def test_serving_metrics():
                 S.Launch(4, MAIN, 41)]
     kernels = [S.Kernel(1, 4, 20), S.Kernel(2, 24, 28), S.Kernel(3, 32, 33),
                S.Kernel(4, 42, 44)]
-    r = S.attribute(spans, launches, kernels, (0, 50))
-    got = {k: v * 1e3 for k, v in S.metrics(r, "serve", 2).items()}
+    return S.attribute(spans, launches, kernels, (0, 50))
+
+
+def test_serving_metrics():
+    r = _serve_reading()
+    got = _read(r, "serve", 2)
     assert got == pytest.approx({"clip_path_host_ms.serve": (10 + 6 + 5) / 2,
                                  "clip_path_idle_ms.serve": (4 + 4 + 9) / 2,
                                  "network_idle_ms.serve": 4 / 2})
     assert r.rows["model/backbone"]["idle_ms"] * 1e3 == pytest.approx(4)
+
+
+# what spans.metrics (a dict of the six, removed for these files) gave on the
+# readings above, in us
+DICT_GAVE = {("serve", "clip_path_host_ms.serve"): 10.5, ("serve", "clip_path_idle_ms.serve"): 8.5,
+             ("serve", "network_idle_ms.serve"): 2.0, ("train", "forward_idle_ms.train"): 5.0,
+             ("train", "backward_idle_ms.train"): 11.0, ("train", "update_idle_ms.train"): 11.0}
+
+
+@pytest.mark.parametrize("kind, name", sorted(DICT_GAVE))
+def test_metric_file_gives_what_the_dict_gave(kind, name):
+    r = _serve_reading() if kind == "serve" else S.attribute(*_train_trace())
+    trace = T.Trace(kind=kind, steps=1, frames=2 if kind == "serve" else 0,
+                    samples=2 if kind == "train" else 0, span_s=1.0, busy_s=0.0, device=[],
+                    ops=[], port_s=0.0, step_flops=0.0, compute_dtype="float32", spans=r)
+    read = cells.metric_reader(name)
+    assert read(trace) * 1e3 == pytest.approx(DICT_GAVE[kind, name])
+    # nothing to read: another kind of run, no span pass, or no spans recorded
+    other = "train" if kind == "serve" else "serve"
+    assert read(T.Trace(**{**trace.__dict__, "kind": other})) is None
+    assert read(T.Trace(**{**trace.__dict__, "spans": None})) is None
+    bare = S.attribute([], [], [S.Kernel(1, 0, 1)], (0, 2))
+    assert read(T.Trace(**{**trace.__dict__, "spans": bare})) is None
 
 
 def test_unmatched_kernel_counts_outside():
@@ -126,9 +167,8 @@ def test_reads_a_cpu_profile():
             with span("train/backward"):
                 torch.ones(4) * 2
 
-    prof, seconds = S.span_pass(step, 2, lambda: None)
-    spans, launches, kernels, window = S.from_profile(prof)
-    assert seconds > 0 and window[0] <= min(s.start for s in spans)
+    spans, launches, kernels, window = S.from_profile(S.span_pass(step, 2, lambda: None))
+    assert window[0] <= min(s.start for s in spans)
     assert [s.name for s in sorted(spans, key=lambda s: s.start)] == \
         ["train/step", "train/prep", "train/backward"] * 2
     assert not kernels and len({s.thread for s in spans}) == 1
@@ -137,3 +177,4 @@ def test_reads_a_cpu_profile():
     assert r.groups == {S.OUTSIDE: pytest.approx(r.window_ms)}
     lines = S.table_lines(r, 2)
     assert any(line.startswith("span train/prep: 1,") for line in lines)
+    assert lines[-1] == f"span groups, idle ms: {S.OUTSIDE} {r.window_ms / 2:.3f}"

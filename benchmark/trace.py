@@ -1,21 +1,23 @@
 """The traced run's reading of ``torch.profiler``: the device's kernels,
 copies and sets inside the profiled steps, the ``poly::`` op calls with their
-shapes, and the host ops that were running when the device went idle.
+shapes, the host ops that were running when the device went idle, and the
+card's idle time put down to the program's spans (:mod:`.spans`).
 
 The profiles are kept in memory; no Chrome trace is written.  ``busy_us``,
-``device_events`` and ``KERNEL_CLASSES`` are copies of the port's
-``tools/profile_paths.py``.
+``device_events`` and the library classes of ``KERNEL_CLASSES`` are copies
+of the port's ``tools/profile_paths.py``; the ``port`` class is the union of
+the roofline files' ``DEVICE_NAMES`` (``benchmark/roofline``).
 """
 from __future__ import annotations
 
 import dataclasses
 
+from . import roofline, spans
+
 SPAN = "benchmark.profiled_steps"
 
 # device kernel name fragments -> class; the first class that matches wins
-KERNEL_CLASSES = (
-    ("port", ("mask_pool", "upsample_int", "phase_fusion", "map_render", "lsa_kernel",
-              "mask_loss", "window_attn")),
+LIBRARY_CLASSES = (
     ("convolution", ("conv", "fprop", "dgrad", "wgrad", "cudnn", "implicit")),
     ("matmul", ("gemm", "gemv", "cutlass", "cublas", "nvjet")),
     ("foreach", ("multi_tensor", "foreach")),
@@ -26,9 +28,19 @@ KERNEL_CLASSES = (
 )
 
 
-def kernel_class(name: str) -> str:
+def kernel_classes(roofline_root=None) -> tuple:
+    """(class, fragments) in order: the program's own kernels (``port``,
+    from the roofline files in ``roofline_root``, default the package's),
+    then the library classes."""
+    return (("port", tuple(sorted(roofline.device_names(roofline_root)))),) + LIBRARY_CLASSES
+
+
+KERNEL_CLASSES = kernel_classes()
+
+
+def kernel_class(name: str, classes: tuple = KERNEL_CLASSES) -> str:
     low = name.lower()
-    for cls, frags in KERNEL_CLASSES:
+    for cls, frags in classes:
         if any(f in low for f in frags):
             return cls
     return "other"
@@ -68,16 +80,19 @@ class Trace:
     port_s: float  # device seconds of the program's own kernels in the shape pass
     step_flops: float  # the configuration's FLOPs of one step
     compute_dtype: str  # the dtype whose peak bounds the step
+    spans: spans.Reading | None = None  # the span pass's idle by span and group
 
 
 def profile_steps(run_step, n: int, sync):
-    """Two passes of ``n`` steps each, ``run_step()`` driving one step.
+    """Three passes of ``n`` steps each, ``run_step()`` driving one step.
     The device pass profiles CUDA activity alone, so the host runs at
     nearly its own pace: the kernels, the busy time and the span on the host
     clock, synchronized at both ends.  The shape pass adds the host's ops
     with their shapes (the ``poly::`` calls for the roofline, the host op
-    behind each idle gap); its host is slowed by the recording.  Returns
-    (device profile, span seconds, shape profile)."""
+    behind each idle gap); its host is slowed by the recording.  The span
+    pass (:func:`spans.span_pass`) records the program's spans and the
+    launches beside the device's intervals, without shapes.  Returns
+    (device profile, span seconds, shape profile, span profile)."""
     import time
 
     import torch
@@ -98,10 +113,11 @@ def profile_steps(run_step, n: int, sync):
             for _ in range(n):
                 run_step()
             sync()
-    return dev_prof, span, ops_prof
+    span_prof = spans.span_pass(run_step, n, sync)
+    return dev_prof, span, ops_prof, span_prof
 
 
-def read(dev_prof, span_s: float, ops_prof, kind: str, steps: int, frames: int,
+def read(dev_prof, span_s: float, ops_prof, span_prof, kind: str, steps: int, frames: int,
          samples: int, step_flops: float, compute_dtype: str) -> tuple[Trace, dict]:
     """The Trace of :func:`profile_steps` and its breakdown: the device ops
     that took most time (by kernel name, then by class) in the device pass,
@@ -119,8 +135,11 @@ def read(dev_prof, span_s: float, ops_prof, kind: str, steps: int, frames: int,
     trace = Trace(kind=kind, steps=steps, frames=frames, samples=samples, span_s=span_s,
                   busy_s=busy_us((s, e) for _, s, e in dev) / 1e6, device=dev,
                   ops=poly_calls(ops_prof), port_s=port, step_flops=step_flops,
-                  compute_dtype=compute_dtype)
+                  compute_dtype=compute_dtype,
+                  spans=spans.attribute(*spans.from_profile(span_prof)))
     return trace, {"device_ops": _top_ops(dev), "idle_gaps": _idle_gaps(events, ops_dev, t0, t1)}
+
+
 def poly_calls(prof) -> list:
     """(name, shapes, dtypes, scalars) of every ``poly::`` op call, in
     order: shapes and scalars from the profile's events, dtypes from the

@@ -4,8 +4,9 @@ one state dict under the mmdet keys.
 Keys and shapes come from the reference model on the meta device.  The rule
 is the port's ``init_weights``: lecun-normal weights (std 1/sqrt(fan-in)),
 unit norm scales, zero biases and BN statistics of an identity, the query
-kernels at std 1, Swin's relative-position bias tables at std 0.02 and the
-classification biases at prior 0.01; every normal value comes from one
+kernels at std 1, the backbone file's ``INIT_STD`` (key suffix -> std; Swin's
+relative-position bias tables at 0.02) for its backbone and neck keys, and
+the classification biases at prior 0.01; every normal value comes from one
 ``torch.randn`` of the model's size, in key order.
 """
 from __future__ import annotations
@@ -14,14 +15,16 @@ import math
 
 import torch
 
-from .reference.models.polyphonic import PolyphonicFormer
+from .reference.models.polyphonic import PolyphonicFormer, backbone_file
 
 _PRIOR = -math.log((1 - 0.01) / 0.01)
 
 
-def _std(name: str, shape) -> float:
-    if name.endswith("relative_position_bias_table"):
-        return 0.02
+def _std(name: str, shape, init_std: dict) -> float:
+    if name.startswith(("backbone.", "neck.")):
+        for suffix, std in init_std.items():
+            if name.endswith(suffix):
+                return std
     if "init_kernels" in name:
         return 1.0
     fan_in = 1
@@ -39,13 +42,14 @@ def state_dict(exp, seed: int, device, zero_class_bias: bool = False) -> dict:
         meta = PolyphonicFormer(exp.model).state_dict()
     drawn = [(k, v.shape) for k, v in meta.items()
              if v.dim() > 1 and not k.endswith(("running_mean", "running_var"))]
+    init_std = getattr(backbone_file(exp.model.backbone), "INIT_STD", {})
     total = sum(math.prod(shape) for _, shape in drawn)
     gen = torch.Generator(device=device).manual_seed(seed)
     flat = torch.randn((total,), generator=gen, device=device)
     out, i = {}, 0
     for k, shape in drawn:
         n = math.prod(shape)
-        out[k] = flat[i:i + n].view(shape).mul_(_std(k, shape))
+        out[k] = flat[i:i + n].view(shape).mul_(_std(k, shape, init_std))
         i += n
     last = f"roi_head.mask_head.{exp.model.num_stages - 1}.fc_cls.bias"
     for k, v in meta.items():
