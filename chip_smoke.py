@@ -95,7 +95,15 @@ counts of (d) too.  Phase 13 holds the serving tracker's kernel (K9,
 ``poly::tracker_step``) to its plain version on the card at the serving
 shapes (4 clips; 0, 4 and 64 valid detections) and times it beside its
 byte and latency bounds; ``python3 chip_smoke.py tracker`` runs phases 1,
-2 and 13 alone.
+2 and 13 alone.  Phase 14 holds ViTDet's attention kernel (K10,
+``poly::relpos_attention``) to its plain version on the card in both modes
+at the serving shapes of ``video_vitdetl`` (B 4, 16 heads of 64: global over
+64 x 128 tokens, windows of 14 on the padded 70 x 140 grid), checks that a
+call allocates nothing beyond its output (no L x L tensor), times it beside
+its bound, its plain version and SDPA over the materialised bias (a
+yardstick the port never calls), counts its HMMA instructions, and counts
+its launches on the ViT serving path (24 a batched step, whatever B);
+``python3 chip_smoke.py relpos`` runs phases 1, 2 and 14 alone.
 Phases 4 to 12 each count the kernel launches of their own run.  Any failed phase raises,
 so the exit code is not 0.  The last lines are the
 card, a JSON object of per-kernel results and the JSON result line
@@ -819,6 +827,109 @@ def check_tracker(dev) -> list[dict]:
     return rows
 
 
+RELPOS_SHAPES = (("global", 4, 64, 128, 0), ("window", 4, 70, 140, 14))
+RELPOS_HEADS = 16
+# K10 on the ViT path: the 4 global and 20 window blocks of ViT-L, once a
+# batched step whatever its clips
+VIT_RELPOS_PER_STEP = 24
+
+
+def check_relpos(dev, tc: dict) -> dict:
+    """Phase 14, K10 (``poly::relpos_attention``): both modes at the serving
+    shapes against the plain version on the card (relative L2 within 1e-2:
+    P and the output rounded to bf16, ~3e-3; the term dropped gives ~0.8),
+    the memory a call allocates (its output alone), the kernel's time beside
+    its bound, the plain version's and SDPA's over the materialised bias, and
+    its launches on the ViT serving path at 512 x 1024 for B 1 and 2."""
+    import torch
+    import torch.nn.functional as F
+
+    from polyphonicformer_torch.infer.pipeline import (init_batched_tracker_states,
+                                                       make_batched_video_step)
+    from polyphonicformer_torch.ops.cuda import relpos_attn as ra
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    rows = []
+    for mode, b, hp, wp, ws in RELPOS_SHAPES:
+        c = 64 * RELPOS_HEADS
+        kh, kw = (ws, ws) if ws else (hp, wp)
+        qkv = torch.randn((b, hp, wp, 3 * c), generator=gen, device=dev).bfloat16()
+        rh = (torch.randn((2 * kh - 1, 64), generator=gen, device=dev) * 0.1).bfloat16()
+        rw = (torch.randn((2 * kw - 1, 64), generator=gen, device=dev) * 0.1).bfloat16()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        launches = ra.KERNEL.launches
+        out = ra.relpos_attention_op(qkv, rh, rw, RELPOS_HEADS, ws)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - before
+        _check(f"relpos {mode} launches", ra.KERNEL.launches == launches + 1,
+               f"{ra.KERNEL.launches - launches} launches a call")
+        _check(f"relpos {mode} memory", extra <= _nbytes(out) + (1 << 20),
+               f"a call allocated {extra} bytes, its output {_nbytes(out)}")
+        want = ra.relpos_attention_plain(qkv, rh, rw, RELPOS_HEADS, ws)
+        gap = float((out.float() - want.float()).norm() / want.float().norm())
+        _check(f"relpos {mode} values", bool(torch.isfinite(out.float()).all()) and gap < 1e-2,
+               f"relative L2 gap {gap}")
+        # the yardstick: SDPA over the windows (or image) with the bias materialised
+        x = qkv
+        if ws:
+            x = x.reshape(b, hp // ws, ws, wp // ws, ws, 3 * c).permute(0, 1, 3, 2, 4, 5)
+        x = x.reshape(-1, kh * kw, 3, RELPOS_HEADS, 64).permute(2, 0, 3, 1, 4)
+        q, k, v = x[0].contiguous(), x[1].contiguous(), x[2].contiguous()
+        r = q.reshape(q.shape[0], RELPOS_HEADS, kh, kw, 64)
+        bias = (torch.einsum("nhyxd,ykd->nhyxk", r, rh[ra._rel_index(kh, dev)])[..., :, None]
+                + torch.einsum("nhyxd,xkd->nhyxk", r, rw[ra._rel_index(kw, dev)])[..., None, :])
+        bias = bias.reshape(q.shape[0], RELPOS_HEADS, kh * kw, kh * kw)
+        lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias),
+                          reps=5)
+        del bias, q, k, v, r, x
+        ms = _time_ms(lambda: ra.relpos_attention_op(qkv, rh, rw, RELPOS_HEADS, ws))
+        nw = b * hp * wp // (kh * kw)
+        flops = 4.0 * nw * (kh * kw) ** 2 * c + 2.0 * nw * kh * kw * (kh + kw) * c
+        bound = _bound(_nbytes(qkv, rh, rw, out), flops, "bf16")
+        rows.append(dict(
+            name=f"relpos_attention_{mode}", kernel="relpos_attention", route="cuda",
+            source="polyphonicformer_torch/csrc/relpos_attn.cu", replaces=None,
+            rel_l2_gap=gap, ms=ms, plain_ms=_time_ms(
+                lambda: ra.relpos_attention_plain(qkv, rh, rw, RELPOS_HEADS, ws), reps=3),
+            library_ms=lib_ms, shape=f"B {b}, {hp}x{wp}, ws {ws}, {RELPOS_HEADS} heads of 64",
+            gflop=flops / 1e9, share_of_bound=bound["bound_ms"] / ms, **bound))
+        del qkv, out, want
+    hmma = {k: n for k, n in tc.items() if "relpos_attn" in k}
+    _check("relpos tensor cores", len(hmma) == 2 and min(hmma.values()) > 0, json.dumps(hmma))
+
+    cfg, model, fgen = _serving_model("video_vitdetl", dev)
+    h, w = 512, 1024
+    bf16 = torch.bfloat16
+    step = make_batched_video_step(model, cfg, (h, w), compute_dtype=bf16, fusion_dtype=bf16)
+    per_step = {}
+    for clips in (1, 2):
+        images = _frames(fgen, clips, h, w, 64, dev)  # a frame a clip
+        states = init_batched_tracker_states(cfg, clips, dev)
+        launches = ra.KERNEL.launches
+        for i in range(2):
+            out, states = step(images if i == 0 else images.flip(2), states, [i + 1] * clips)
+            torch.cuda.synchronize()
+            _check_maps(f"vit batched step B {clips}", out, cfg, (clips, h, w))
+        per_step[clips] = (ra.KERNEL.launches - launches) / 2
+        _check(f"vit relpos launches B {clips}", per_step[clips] == VIT_RELPOS_PER_STEP,
+               f"{per_step[clips]} a batched step")
+    for r in rows:
+        r["launches_per_batched_step"] = VIT_RELPOS_PER_STEP
+    return {"rows": rows, "hmma": hmma, "vit_launches_per_step": per_step}
+
+
+def _print_relpos(info) -> None:
+    for r in info["rows"]:
+        print(f"[14 relpos] {r['name']}: {r['shape']} | kernel {r['ms']:.4f} ms | plain "
+              f"{r['plain_ms']:.4f} ms | SDPA with the bias {r['library_ms']:.4f} ms | bound "
+              f"{r['bound_us']:.2f} us ({r['bound_by']}), {100 * r['share_of_bound']:.1f}% | "
+              f"relative L2 gap {r['rel_l2_gap']:.2e}", flush=True)
+    print(f"[14 relpos] HMMA {json.dumps(info['hmma'])}; launches a ViT batched step "
+          f"{json.dumps(info['vit_launches_per_step'])}", flush=True)
+
+
 def _print_tracker(rows) -> None:
     for r in rows:
         print(f"[13 tracker] {r['name']}: {r['shape']} | kernel {r['ms']:.4f} ms | plain "
@@ -828,7 +939,7 @@ def _print_tracker(rows) -> None:
               f"tracklets {r['num_tracklets']}", flush=True)
 
 
-def main(only_tracker: bool = False) -> int:
+def main(only: str | None = None) -> int:
     import shutil
 
     import torch
@@ -867,8 +978,11 @@ def main(only_tracker: bool = False) -> int:
            and any(k.startswith("mask_pool") for k in tc), f"HMMA/HGMMA per kernel {tc}")
     print(f"[2 build] tensor-core instructions (cuobjdump -sass): {json.dumps(tc)}", flush=True)
 
-    if only_tracker:
-        _print_tracker(check_tracker(dev))
+    if only is not None:
+        if only == "tracker":
+            _print_tracker(check_tracker(dev))
+        else:
+            _print_relpos(check_relpos(dev, tc))
         print(f"card: {card}")
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                 "kind": torch.cuda.get_device_name(0),
@@ -925,6 +1039,9 @@ def main(only_tracker: bool = False) -> int:
         tracker_rows = check_tracker(dev)
         _print_tracker(tracker_rows)
         done("phase 13")
+        relpos = check_relpos(dev, tc)
+        _print_relpos(relpos)
+        done("phase 14")
     finally:
         shutil.rmtree(_eval_dir(), ignore_errors=True)
         shutil.rmtree(_train_dir(), ignore_errors=True)
@@ -944,7 +1061,7 @@ def main(only_tracker: bool = False) -> int:
         _check(f"launches {r['name']}", r["launches"] > 0, "never launched on a main path")
 
     print(f"card: {card}")
-    print(json.dumps({"kernels": rows, "tracker": tracker_rows}))
+    print(json.dumps({"kernels": rows, "tracker": tracker_rows, "relpos": relpos["rows"]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                             "kind": torch.cuda.get_device_name(0),
                                             "count": torch.cuda.device_count()}}))
@@ -4009,4 +4126,4 @@ def run_dist(dev, f64_distance: float):
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "dist-rank":  # a rank of phase 12
         sys.exit(_dist_rank(sys.argv[2]))
-    sys.exit(main(only_tracker=sys.argv[1:] == ["tracker"]))
+    sys.exit(main(only=sys.argv[1] if sys.argv[1:] in (["tracker"], ["relpos"]) else None))

@@ -230,6 +230,12 @@ SWIN_SPECS = {"swin_tiny": (96, (2, 2, 6, 2), (3, 6, 12, 24)),
               "swin_large": (192, (2, 2, 18, 2), (6, 12, 24, 48))}
 # backbone -> STDC blocks per stage; the STDC branch of the same setup
 STDC_LAYERS = {"stdc813": (2, 2, 2), "stdc1446": (4, 5, 3)}
+# backbone -> (embed dim, depth, heads, global blocks, window) of a ViTDet ViT
+# (models/vit.py; the port's own, the JAX package has no ViT): ViT-L as
+# detectron2 projects/ViTDet/configs/COCO/mask_rcnn_vitdet_l_100ep.py, and a
+# CPU-test size
+VIT_SPECS = {"vitdet_large": (1024, 24, 16, (5, 11, 17, 23), 14),
+             "vitdet_tiny": (64, 4, 2, (1, 3), 3)}
 
 
 def _video_r50_1x() -> ExperimentConfig:
@@ -260,6 +266,15 @@ def _video_swinl() -> ExperimentConfig:
         work_dir="work_dirs/poly_swinl_video")
 
 
+def _video_vitdetl() -> ExperimentConfig:
+    """The video model on ViTDet ViT-L and its simple feature pyramid, served
+    in bf16; the port's own (the JAX package has no ViT)."""
+    cfg = _video_r50_1x()
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, backbone="vitdet_large", compute_dtype="bfloat16"),
+        work_dir="work_dirs/poly_vitdetl_video")
+
+
 PRESETS = {
     # reference configs/polyphonic_image/poly_r50_cityscapes_2x.py
     "image_r50_2x": lambda: ExperimentConfig(work_dir="work_dirs/poly_r50_image_2x"),
@@ -269,6 +284,8 @@ PRESETS = {
     "video_r50_semkitti_1x": _video_r50_semkitti_1x,
     # the JAX package's video_swinl: video_r50_1x on swin_large, in bf16
     "video_swinl": _video_swinl,
+    # the port's own: video_r50_1x on vitdet_large, in bf16
+    "video_vitdetl": _video_vitdetl,
     "debug_tiny": _debug_tiny,
     "debug_tiny_video": _debug_tiny_video,
 }

@@ -1,6 +1,8 @@
 """PolyphonicFormer: backbone -> FPN -> KernelHead -> KernelUpdateHead
 stages, plus the track head; mirrors
-``polyphonicformer_tpu/models/polyphonic.py``.
+``polyphonicformer_tpu/models/polyphonic.py``.  A ViTDet backbone
+(``VIT_SPECS``, the port's own) takes its simple feature pyramid for the
+FPN (``models/vit.py``).
 
 Images enter in the JAX layout (B, H, W, 3); everything inside is NCHW.
 ``state_dict()`` keys are the reference checkpoint's keys
@@ -15,7 +17,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..configs import STDC_LAYERS, SWIN_SPECS
+from ..configs import STDC_LAYERS, SWIN_SPECS, VIT_SPECS
 from ..utils.profiling import span
 from .fpn import FPN
 from .kernel_head import KernelHead, RPNOutput
@@ -24,6 +26,7 @@ from .resnet import ResNet
 from .stdc import STDCNet
 from .swin import SwinTransformer
 from .track_head import TrackHead
+from .vit import SimpleFeaturePyramid, ViT
 
 
 class ModelOutput(NamedTuple):
@@ -42,10 +45,11 @@ class _RoIHead(nn.Module):
 
 class PolyphonicFormer(nn.Module):
     def __init__(self, cfg, tp=None):
-        """cfg: a ``configs.ModelConfig`` (ResNet, Swin or STDC backbones).
-        ``tp``: the mesh's model axis (``parallel.tensor_parallel.
-        ModelParallel``) that a Swin backbone with ``cfg.shard_backbone``
-        shards over; ignored otherwise."""
+        """cfg: a ``configs.ModelConfig`` (ResNet, Swin, STDC or ViTDet
+        backbones).  ``tp``: the mesh's model axis (``parallel.
+        tensor_parallel.ModelParallel``) that a Swin backbone with
+        ``cfg.shard_backbone`` shards over; ignored otherwise.  A ViT has no
+        tensor-parallel form: ``shard_backbone`` raises."""
         super().__init__()
         self.cfg = cfg
         if cfg.backbone.startswith("resnet"):
@@ -56,12 +60,19 @@ class PolyphonicFormer(nn.Module):
                                             tp=tp if cfg.shard_backbone else None)
         elif cfg.backbone in STDC_LAYERS:  # nor any STDC parameter
             self.backbone = STDCNet(layers=STDC_LAYERS[cfg.backbone])
+        elif cfg.backbone in VIT_SPECS:
+            if cfg.shard_backbone:
+                raise ValueError(f"{cfg.backbone}: a ViT backbone is not tensor-sharded")
+            self.backbone = ViT(*VIT_SPECS[cfg.backbone])
         else:
             raise ValueError(f"unknown backbone {cfg.backbone}")
         # JAX nn.remat: the backward recomputes the backbone's activations
         # (ResNet and Swin; JAX does not remat STDC)
         self.remat_backbone = cfg.remat_backbone and cfg.backbone not in STDC_LAYERS
-        self.neck = FPN(self.backbone.out_channels, cfg.fpn_out_channels)
+        if cfg.backbone in VIT_SPECS:
+            self.neck = SimpleFeaturePyramid(self.backbone.out_channels, cfg.fpn_out_channels)
+        else:
+            self.neck = FPN(self.backbone.out_channels, cfg.fpn_out_channels)
         self.rpn_head = KernelHead(
             cfg.fpn_out_channels, cfg.out_channels, cfg.num_proposals,
             cfg.num_thing_classes, cfg.num_stuff_classes, cfg.sem_fpn_gn_groups,
@@ -123,8 +134,9 @@ class PolyphonicFormer(nn.Module):
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Draw every parameter from ``generator``: lecun-normal weights, unit
     norm scales, zero biases and BN statistics of an identity, the query
-    kernels at std 1, Swin's relative-position bias tables at std 0.02, and
-    the classification biases at prior 0.01."""
+    kernels at std 1, Swin's relative-position bias tables and ViT's
+    position table at std 0.02, and the classification biases at prior
+    0.01."""
     prior = -math.log((1 - 0.01) / 0.01)
     with torch.no_grad():
         for name, p in [*model.named_parameters(), *model.named_buffers()]:
@@ -138,7 +150,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             elif p.dim() == 1:  # norm scales
                 p.fill_(1.0)
             else:
-                if leaf == "relative_position_bias_table":
+                if leaf in ("relative_position_bias_table", "pos_embed"):
                     std = 0.02
                 elif "init_kernels" in name:
                     std = 1.0

@@ -9,10 +9,11 @@ compute dtype (as the JAX export takes its f32 variables), so one artifact
 serves every checkpoint of the architecture.  The export is
 shape-specialised and made on the device it serves on; the kernels stay in
 its graph as ``poly::`` custom ops (K1, K2 and K4; K3 with ``--bf16``; K7
-and K8 on Swin-L), so the loaded program launches them as the eager step
-does.  Before saving, the program's example inputs are dropped: they would
-put the state dict into the artifact, and their ``TrackerState`` could only
-be unpickled by ``torch.export.load``'s fallback to ``weights_only=False``.
+and K8 on Swin-L; K10 on ViTDet), so the loaded program launches them as
+the eager step does.  Before saving, the program's example inputs are
+dropped: they would put the state dict into the artifact, and their
+``TrackerState`` could only be unpickled by ``torch.export.load``'s
+fallback to ``weights_only=False``.
 The artifact holds the graph and the small constant tables of
 ``ops/device_tables.py``, and no pickle.
 
@@ -150,7 +151,7 @@ def _register_ops() -> None:
     """Define the ``poly::`` ops the graph calls (importing their modules
     builds no kernel)."""
     from ..ops.cuda import (lsa, map_render, mask_loss, mask_pool, phase_fusion,  # noqa: F401
-                            tracker, upsample2, window_attn)
+                            relpos_attn, tracker, upsample2, window_attn)
 
 
 class Serving:

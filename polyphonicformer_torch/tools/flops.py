@@ -10,8 +10,10 @@ forward runs once, eagerly, on the device under
 ``torch.utils.flop_counter.FlopCounterMode``: the products (matmuls,
 convolutions, attention) of every dispatched op, with formulas registered
 for the port's kernels that compute products: ``poly::mask_pool``
-(2·B·N·hw·C) and the window attention ops ``poly::window_attn_math`` and
-``poly::window_attention`` (the two products, 4·windows·heads·L²·hd).
+(2·B·N·hw·C), the window attention ops ``poly::window_attn_math`` and
+``poly::window_attention`` (the two products, 4·windows·heads·L²·hd) and
+ViTDet's ``poly::relpos_attention`` (the same, plus the rel terms,
+2·windows·heads·L·(kh + kw)·hd).
 Elementwise work and reductions are not counted, where XLA counts them, so
 the count lies below XLA's (``tests/test_torch_flops.py`` states the band).
 ``bytes_accessed_GB`` is the sum of each dispatched op's input and output
@@ -27,7 +29,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode, flop_registry, register_flop_formula
 
-from ..ops.cuda import mask_pool, window_attn  # noqa: F401  (defines the poly:: ops)
+from ..ops.cuda import mask_pool, relpos_attn, window_attn  # noqa: F401  (defines the poly:: ops)
 
 
 def mask_pool_flop(mask_logits_shape, feats_shape, thr, out_shape=None, **kwargs) -> int:
@@ -50,9 +52,21 @@ def window_attention_flop(qkv_shape, bias_shape, mask_shape, num_heads, ws, out_
     return 4 * (b * hp * wp // (ws * ws)) * (ws * ws) ** 2 * (c3 // 3)
 
 
+def relpos_attention_flop(qkv_shape, rel_pos_h_shape, rel_pos_w_shape, num_heads, ws,
+                          out_shape=None, **kwargs) -> int:
+    """Q K^T and P V of each window (or image) and head, 4·nw·heads·L²·hd,
+    and the rel terms q·R_h and q·R_w, 2·nw·heads·L·(kh + kw)·hd."""
+    b, hp, wp, c3 = qkv_shape
+    kh, kw = (ws, ws) if ws else (hp, wp)
+    nw = b * hp * wp // (kh * kw)
+    l, c = kh * kw, c3 // 3
+    return 4 * nw * l * l * c + 2 * nw * l * (kh + kw) * c
+
+
 KERNEL_FLOPS = {torch.ops.poly.mask_pool: mask_pool_flop,
                 torch.ops.poly.window_attn_math: window_attn_math_flop,
-                torch.ops.poly.window_attention: window_attention_flop}
+                torch.ops.poly.window_attention: window_attention_flop,
+                torch.ops.poly.relpos_attention: relpos_attention_flop}
 for _op, _formula in KERNEL_FLOPS.items():
     if _op not in flop_registry:
         register_flop_formula(_op)(_formula)

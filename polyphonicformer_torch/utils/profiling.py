@@ -14,7 +14,8 @@
   ``network``, ``fuse``, ``detections``, ``track_embeds``, ``track``,
   ``render``, ``stack`` (``infer/pipeline.py``); ``model/`` ``backbone``,
   ``neck``, ``kernel_head``, ``stage``, ``track_head``
-  (``models/polyphonic.py``); ``train/`` ``step``, ``prep``, ``cast``,
+  (``models/polyphonic.py``), ``vit_window_attn``, ``vit_global_attn``
+  (``models/vit.py``, inside ``model/backbone``); ``train/`` ``step``, ``prep``, ``cast``,
   ``forward_losses``, ``assign``, ``losses``, ``track_losses``,
   ``backward``, ``grad_cast``, ``reduce``, ``clip``, ``guard``,
   ``optimizer`` (``train/``).

@@ -1,12 +1,28 @@
 """The port's configuration against the JAX package's: every field of a port
 preset equals the field of the same name in ``get_preset(name)``, for the
-model, data and schedule parts."""
+model, data and schedule parts.  A preset of the port's own (a backbone the
+JAX package lacks) is held to the JAX preset it is built on, with the model
+fields it names changed (``PORT_ONLY``)."""
 import dataclasses
 
 import pytest
 
-from polyphonicformer_tpu.configs import get_preset
+from polyphonicformer_tpu.configs import get_preset as _jax_preset
 from polyphonicformer_torch.configs import PRESETS, model_preset, preset
+
+# port preset -> (the JAX preset it is built on, the model fields it changes)
+PORT_ONLY = {"video_vitdetl": ("video_r50_1x", {"backbone": "vitdet_large",
+                                                "compute_dtype": "bfloat16"})}
+
+
+def get_preset(name):
+    """The JAX package's preset ``name``, or for a preset of the port's own,
+    its JAX base with the model fields of ``PORT_ONLY`` changed."""
+    if name not in PORT_ONLY:
+        return _jax_preset(name)
+    base, model = PORT_ONLY[name]
+    cfg = _jax_preset(base)
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **model))
 
 
 def _assert_fields_equal(port, ref, path):

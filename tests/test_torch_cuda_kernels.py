@@ -9,7 +9,8 @@ import pytest
 import torch
 
 from polyphonicformer_torch.ops.cuda import (lsa, map_render, mask_loss, mask_pool,
-                                             phase_fusion, tracker, upsample2, window_attn)
+                                             phase_fusion, relpos_attn, tracker, upsample2,
+                                             window_attn)
 import tracker_cases
 
 pytestmark = pytest.mark.cuda
@@ -696,3 +697,41 @@ def test_tracker_step_kernel_refuses(dev):
     with pytest.raises(ValueError, match="aligned"):
         shifted = torch.zeros(emb.numel() + 1, device=dev)[1:].view(emb.shape)
         tracker.tracker_step_batched(cfg, state, boxes, labels, shifted, valid, fids)
+
+
+def _relpos_inputs(dev, b, hp, wp, ws, heads):
+    g = torch.Generator(device=dev).manual_seed(10)
+    kh, kw = (ws, ws) if ws else (hp, wp)
+    qkv = torch.randn((b, hp, wp, 3 * 64 * heads), generator=g, device=dev).bfloat16()
+    rh = (torch.randn((2 * kh - 1, 64), generator=g, device=dev) * 0.3).bfloat16()
+    rw = (torch.randn((2 * kw - 1, 64), generator=g, device=dev) * 0.3).bfloat16()
+    return qkv, rh, rw
+
+
+@pytest.mark.parametrize("b,hp,wp,ws,heads", [
+    (1, 6, 9, 3, 2), (2, 28, 42, 14, 3), (1, 70, 140, 14, 1),  # windows, the last of ViT-L
+    (1, 4, 8, 0, 2), (2, 5, 13, 0, 1),  # global, rows not whole tiles
+    (1, 8, 64, 0, 2), (2, 16, 128, 0, 1)])  # global by column halves
+def test_relpos_attention(dev, b, hp, wp, ws, heads):
+    """K10 against its plain version: relative L2 within 1e-2 (P and the
+    output rounded to bf16 give ~3e-3), and the term dropped far outside."""
+    qkv, rh, rw = _relpos_inputs(dev, b, hp, wp, ws, heads)
+    before = relpos_attn.KERNEL.launches
+    got = relpos_attn.relpos_attention(qkv, rh, rw, heads, ws)
+    assert relpos_attn.KERNEL.launches == before + 1
+    want = relpos_attn.relpos_attention_plain(qkv, rh, rw, heads, ws)
+    gap = ((got.float() - want.float()).norm() / want.float().norm()).item()
+    assert torch.isfinite(got.float()).all() and gap < 1e-2
+    dropped = relpos_attn.relpos_attention_plain(qkv, rh * 0, rw * 0, heads, ws)
+    assert ((got.float() - dropped.float()).norm() / dropped.float().norm()).item() > 0.1
+
+
+def test_relpos_attention_refuses(dev):
+    qkv, rh, rw = _relpos_inputs(dev, 1, 6, 9, 3, 2)
+    with pytest.raises(TypeError):
+        relpos_attn.relpos_attention(qkv.float(), rh.float(), rw.float(), 2, 3)
+    with pytest.raises(ValueError, match="head dim"):
+        relpos_attn.relpos_attention(qkv, rh[:, :32].contiguous(), rw[:, :32].contiguous(), 4, 3)
+    leaf = qkv.clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
+        relpos_attn.relpos_attention(leaf, rh, rw, 2, 3).sum().backward()

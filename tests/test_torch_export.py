@@ -44,8 +44,8 @@ H, W = 64, 128
 FRAME_OPS = {"mask_pool": 7, "upsample_int": 4, "render_maps": 1}
 
 
-def _port(seed: int):
-    cfg = model_preset("debug_tiny_video", max_per_img=100)
+def _port(seed: int, backbone: str = "resnet50"):
+    cfg = model_preset("debug_tiny_video", max_per_img=100, backbone=backbone)
     model = build_model(cfg, "cpu", generator=torch.Generator().manual_seed(seed))
     with torch.no_grad():
         model.roi_head.mask_head[-1].fc_cls.bias.zero_()
@@ -108,11 +108,9 @@ def test_frame_roundtrip_bit_equal(port, caplog):
     assert len(blob) < sum(v.numel() * v.element_size() for v in sd.values())
 
 
-def test_frame_artifact_loads_in_a_fresh_process(port, tmp_path):
-    """``load_serving`` alone defines every ``poly::`` op the frame program
-    calls (the tracker's among them): a process that imports nothing else
-    loads the artifact."""
-    cfg, model = port
+def _fresh_process_ops(cfg, model, tmp_path) -> str:
+    """The ``poly::`` ops of the frame artifact of ``model`` as a process
+    that imports nothing but ``load_serving`` lists them."""
     path = tmp_path / "frame.pt2"
     path.write_bytes(export.export_serving(model, cfg, "frame", (H, W)))
     code = ("import sys; from polyphonicformer_torch.tools import export; "
@@ -121,7 +119,20 @@ def test_frame_artifact_loads_in_a_fresh_process(port, tmp_path):
                           text=True, timeout=300,
                           cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert "tracker_step" in proc.stdout.splitlines()[-1]
+    return proc.stdout.splitlines()[-1]
+
+
+def test_frame_artifact_loads_in_a_fresh_process(port, tmp_path):
+    """``load_serving`` alone defines every ``poly::`` op the frame program
+    calls (the tracker's among them): a process that imports nothing else
+    loads the artifact."""
+    assert "tracker_step" in _fresh_process_ops(*port, tmp_path)
+
+
+def test_vit_frame_artifact_loads_in_a_fresh_process(tmp_path):
+    """The same on the tiny ViTDet backbone, whose graph holds K10."""
+    ops = _fresh_process_ops(*_port(0, "vitdet_tiny"), tmp_path)
+    assert "'relpos_attention'" in ops and "'tracker_step'" in ops, ops
 
 def test_image_roundtrip_two_checkpoints(port, tmp_path):
     """f32 image mode: the artifact written to a file and loaded from it

@@ -11,7 +11,7 @@ share of a 3x3 convolution's taps.  The share falls as the image grows:
 operations, which the port does not; at these sizes they are small.  The
 kernels' formulas are counted: without them the count drops by their
 analytic amount, K1 on ``debug_tiny``, K7 and K8 on a ``swin_tiny``
-backbone.
+backbone, K10 on a ``vitdet_tiny`` one.
 """
 import dataclasses
 
@@ -57,7 +57,8 @@ class _Shapes(TorchDispatchMode):
 
 def _analytic(calls) -> dict:
     """FLOPs written out from each call's shapes: K1 2·B·N·hw·C; K7/K8
-    Q K^T and P V, 2·L·L·hd each per window and head."""
+    Q K^T and P V, 2·L·L·hd each per window and head; K10 the same and
+    q·R_h, q·R_w, 2·L·kh·hd and 2·L·kw·hd."""
     out = {}
     for name, args in calls:
         if name == "mask_pool":
@@ -70,6 +71,12 @@ def _analytic(calls) -> dict:
             b, hp, wp, c3 = args[0].shape
             ws = args[4]
             n_flops = (b * hp * wp // ws ** 2) * args[3] * 2 * (2 * ws ** 4 * (c3 // 3 // args[3]))
+        elif name == "relpos_attention":
+            b, hp, wp, c3 = args[0].shape
+            kh, kw = (args[4], args[4]) if args[4] else (hp, wp)
+            hd = c3 // 3 // args[3]
+            n_flops = (b * hp * wp // (kh * kw)) * args[3] * (
+                2 * (2 * (kh * kw) ** 2 * hd) + 2 * kh * kw * (kh + kw) * hd)
         else:
             continue
         out[name] = out.get(name, 0) + n_flops
@@ -78,7 +85,8 @@ def _analytic(calls) -> dict:
 
 @pytest.mark.parametrize("backbone,ops", [
     ("resnet50", ("mask_pool",)),
-    ("swin_tiny", ("mask_pool", "window_attn_math", "window_attention"))])
+    ("swin_tiny", ("mask_pool", "window_attn_math", "window_attention")),
+    ("vitdet_tiny", ("mask_pool", "relpos_attention"))])
 def test_kernel_formulas_counted(backbone, ops, monkeypatch):
     cfg = dataclasses.replace(model_preset("debug_tiny"), backbone=backbone)
     model = build_model(cfg, "cpu", generator=torch.Generator().manual_seed(0))
